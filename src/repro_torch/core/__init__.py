@@ -1,2 +1,2 @@
-"""Core FedGBF library, serving half: types, binning, activations, tree
-traversal and ensemble prediction."""
+"""Core FedGBF library: types, binning, objectives, histograms, split
+search, tree building and traversal, forests, backends and boosting."""

@@ -68,3 +68,10 @@ def bin_data(x: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
                            right=False, out_int32=True)
     b = torch.where(torch.isnan(cols), torch.full_like(b, NAN_BIN), b)
     return b.T.contiguous()
+
+
+def fit_bin(x: torch.Tensor, num_bins: int) -> tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """Fit edges on ``x`` and bin it: (binned (n, d) int32, edges)."""
+    edges = quantile_bin_edges(x, num_bins)
+    return bin_data(x, edges), edges

@@ -1,4 +1,4 @@
-"""Core datatypes, serving half: the counterpart of ``repro/core/types.py``.
+"""Core datatypes: the counterpart of ``repro/core/types.py``.
 
 All tree structures are *fixed-topology complete binary trees* of static depth
 ``max_depth``:
@@ -42,9 +42,10 @@ def forest_size(trees: TreeArrays) -> int:
 class TreeConfig:
     """Static hyper-parameters of a single decision tree (Alg. 2).
 
-    Same fields and defaults as the JAX package's ``TreeConfig``; the
-    training-side switches (``hist_subtraction``, ``max_active_nodes``,
-    ``shared_root``) are carried for the training slice.
+    Same fields and defaults as the JAX package's ``TreeConfig``:
+    ``hist_subtraction`` derives right siblings as parent − left at levels
+    >= 1, ``max_active_nodes`` caps the live frontier per level (0 = none)
+    and ``shared_root`` derives level-0 histograms as shared − delta.
     """
 
     max_depth: int = 3
@@ -55,6 +56,22 @@ class TreeConfig:
     hist_subtraction: bool = True
     max_active_nodes: int = 0
     shared_root: bool = False
+
+    @property
+    def num_internal(self) -> int:
+        return 2 ** self.max_depth - 1
+
+    @property
+    def num_leaves(self) -> int:
+        return 2 ** self.max_depth
+
+    def active_width(self, level: int) -> int:
+        """Live-slot budget of a level: ``min(2**level, max_active_nodes)``
+        (the full frontier when uncompacted)."""
+        width = 2 ** level
+        if self.max_active_nodes:
+            return min(width, self.max_active_nodes)
+        return width
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -40,6 +41,7 @@ build_count = 0
 #: library name -> its BuildReport, for libraries loaded in this process.
 reports: dict[str, BuildReport] = {}
 _libraries: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()  # libraries may be built from several threads
 
 
 def _nvcc() -> str:
@@ -54,7 +56,8 @@ def _nvcc() -> str:
 def load_library(name: str, sources: list[Path]) -> ctypes.CDLL:
     """The shared library built from ``sources``, compiled if not on disk."""
     global build_count
-    lib = _libraries.get(name)
+    with _lock:
+        lib = _libraries.get(name)
     if lib is not None:
         return lib
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -62,7 +65,8 @@ def load_library(name: str, sources: list[Path]) -> ctypes.CDLL:
         digest.update(Path(src).read_bytes())
     so = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     log_path = so.with_suffix(".log")
-    if so.exists():
+    built = not so.exists()
+    if not built:
         report = BuildReport(so, 0.0, log_path.read_text()
                              if log_path.exists() else "")
     else:
@@ -79,9 +83,10 @@ def load_library(name: str, sources: list[Path]) -> ctypes.CDLL:
         log = proc.stdout + proc.stderr
         log_path.write_text(log)
         os.replace(tmp, so)
-        build_count += 1
         report = BuildReport(so, seconds, log)
     lib = ctypes.CDLL(str(so))
-    reports[name] = report
-    _libraries[name] = lib
+    with _lock:
+        build_count += built
+        reports[name] = report
+        _libraries[name] = lib
     return lib

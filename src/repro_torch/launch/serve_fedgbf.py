@@ -16,9 +16,12 @@ without a host-side staging copy.  Latency is taken after
         --checkpoint src/repro_torch/testdata/dynamic_fedgbf_r20 \
         --requests 1000000
 
-Training waits for the port's next slice, so ``--checkpoint`` is required;
-the JAX package's ``serve_fedgbf --save`` writes one.  ``--quantize`` and
-``--metrics-port`` are not ported yet.
+    # no checkpoint: train Dynamic FedGBF first (local-cuda backend, masks
+    # drawn natively from seed 0), then serve it; --save keeps the model
+    PYTHONPATH=src python -m repro_torch.launch.serve_fedgbf --rounds 20 \
+        --save /tmp/model
+
+``--quantize`` and ``--metrics-port`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.core import boosting
 from repro_torch.core import objective as objective_mod
+from repro_torch.core.types import pack_ensemble
 from repro_torch.data import synthetic
 from repro_torch.device import resolve
 from repro_torch.obs import metrics as obs_metrics
@@ -342,9 +346,14 @@ def score_stream(
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--checkpoint", required=True,
+    ap.add_argument("--checkpoint", default=None,
                     help="packed checkpoint path (either package's "
-                         "checkpoint.io.save_ensemble)")
+                         "checkpoint.io.save_ensemble); without one, a "
+                         "model is trained first")
+    ap.add_argument("--save", default=None,
+                    help="save the (freshly trained) packed model here")
+    ap.add_argument("--rounds", type=int, default=10,
+                    help="training rounds when no checkpoint is given")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (no silent CPU fallback)")
     ap.add_argument("--dataset", choices=list(synthetic.DATASETS),
@@ -379,12 +388,25 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     device = resolve(args.device)
-    packed = ckpt_io.load_ensemble(args.checkpoint, device=device)
-    print(f"loaded {args.checkpoint}: {packed.total_trees} trees / "
-          f"{packed.rounds} rounds, depth {packed.max_depth}, on {device}")
+    ds = synthetic.load(args.dataset)
+    if args.checkpoint:
+        packed = ckpt_io.load_ensemble(args.checkpoint, device=device)
+        print(f"loaded {args.checkpoint}: {packed.total_trees} trees / "
+              f"{packed.rounds} rounds, depth {packed.max_depth}, on "
+              f"{device}")
+    else:
+        model, _ = boosting.train_fedgbf(
+            ds.x_train, ds.y_train,
+            boosting.dynamic_fedgbf_config(rounds=args.rounds),
+            backend="local-cuda", device=device)
+        packed = pack_ensemble(model)
+        print(f"trained {packed.total_trees} trees / {packed.rounds} rounds "
+              f"on {device}")
+    if args.save:
+        ckpt_io.save_ensemble(args.save, packed)
+        print(f"saved packed checkpoint to {args.save}")
 
     # Synthetic request stream: resample test rows up to --requests users.
-    ds = synthetic.load(args.dataset)
     rng = np.random.default_rng(0)
     idx = rng.integers(0, ds.x_test.shape[0], args.requests)
     requests = np.asarray(ds.x_test)[idx]

@@ -1,12 +1,17 @@
-"""The committed reference model and its golden scores.
+"""The committed reference model, its golden scores and its training
+oracle.
 
 ``src/repro_torch/testdata/`` holds a Dynamic FedGBF checkpoint trained by
 the JAX package (``serve_fedgbf --dataset default_credit_card --rounds 20``:
-78 trees, depth 3, B = 32) and the JAX package's scores for the first 4,096
-requests of the seed-0 request stream.  ``chip_smoke.py`` holds the port's
-GPU scores against the same file.
+78 trees, depth 3, B = 32), the JAX package's scores for the first 4,096
+requests of the seed-0 request stream, and the training oracle of the same
+run (``dynamic_fedgbf_r20_train.npz``): the 78 sample masks (bit-packed)
+and feature masks the scan engine draws up front from ``PRNGKey(0)``, the
+per-round train metric matrix and the final train margins.
+``chip_smoke.py`` holds the port's GPU scores and its GPU training run
+against the same files.
 
-Regenerate all three files (uses JAX; about 30 s on a CPU):
+Regenerate all four files (uses JAX; about 45 s on a CPU):
 
     PYTHONPATH=src python tests/test_torch_reference.py
 """
@@ -24,6 +29,8 @@ ROOT = Path(__file__).resolve().parents[1]
 TESTDATA = ROOT / "src" / "repro_torch" / "testdata"
 CKPT = TESTDATA / "dynamic_fedgbf_r20"
 SCORES = TESTDATA / "dynamic_fedgbf_r20_scores.npz"
+TRAIN = TESTDATA / "dynamic_fedgbf_r20_train.npz"
+METRIC_KEYS = ("auc", "acc", "f1", "loss")
 N_SCORED = 4096
 N_PALLAS = 256
 
@@ -50,6 +57,41 @@ def _jax_scores():
         "margin_pallas": np.asarray(
             boosting.predict(pe, x[:N_PALLAS], impl="pallas")),
     }
+
+
+def _jax_train_oracle():
+    """The reference run's masks, as the scan engine derives them from
+    ``PRNGKey(0)``, and the run's train metric matrix and final margins."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import boosting
+    from repro.data import synthetic
+    from torch_parity import jax_step_masks
+
+    ds = synthetic.load("default_credit_card")
+    n, d = ds.x_train.shape
+    cfg = boosting.dynamic_fedgbf_config(rounds=20)
+    smask, fmask = jax_step_masks(cfg, n, d)
+    _, hist = boosting.train_fedgbf(
+        jnp.asarray(ds.x_train), jnp.asarray(ds.y_train), cfg,
+        jax.random.PRNGKey(0))
+    return {
+        "sample_bits": np.packbits(smask.astype(np.uint8), axis=1),
+        "feature": fmask,
+        "n": np.int64(n),
+        "train_metrics": np.array([[r[k] for k in METRIC_KEYS]
+                                   for r in hist.train], np.float32),
+        "final_margin": np.asarray(hist.final_margin),
+    }
+
+
+def test_jax_reproduces_committed_train_oracle():
+    want = np.load(TRAIN)
+    got = _jax_train_oracle()
+    assert set(want.files) == set(got)
+    for key, value in got.items():
+        np.testing.assert_array_equal(value, want[key], err_msg=key)
 
 
 def test_jax_reproduces_committed_scores():
@@ -121,10 +163,11 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code, str(ROOT)], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15, out.stdout
+    assert int(out.stdout.split()[-1]) >= 30, out.stdout
 
 
 def _regenerate() -> None:
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
     TESTDATA.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     subprocess.run(
@@ -134,7 +177,8 @@ def _regenerate() -> None:
          "--save", str(CKPT)],
         env=env, check=True)
     np.savez(SCORES, **_jax_scores())
-    print(f"wrote {CKPT}.npz, {CKPT}.meta.json and {SCORES}")
+    np.savez_compressed(TRAIN, **_jax_train_oracle())
+    print(f"wrote {CKPT}.npz, {CKPT}.meta.json, {SCORES} and {TRAIN}")
 
 
 if __name__ == "__main__":

@@ -74,3 +74,42 @@ def hard_rows(rng, n, bin_edges):
     x[1, :] = np.inf
     x[2, :] = -np.inf
     return x
+
+
+def jax_step_masks(cfg, n, d, seed=0):
+    """The masks of every scheduled tree build as the JAX scan engine draws
+    them up front (``boosting.py:576-591``): one split of ``PRNGKey(seed)``
+    per round, one ``fold_in`` per tree slot, exact-count permutation
+    masks.  Returns numpy (S, n) float32 and (S, d) bool."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import boosting, dynamic
+    from repro.core import forest as forest_mod
+
+    _, flat = dynamic.flat_schedule(cfg)
+    rng = jax.random.PRNGKey(seed)
+    round_keys = []
+    for _ in range(cfg.rounds):
+        rng, k_round = jax.random.split(rng)
+        round_keys.append(k_round)
+    step_keys = jax.vmap(jax.random.fold_in)(
+        jnp.stack(round_keys)[jnp.asarray(flat.round_of_step)],
+        jnp.asarray(flat.tree_in_round))
+    n_keep = boosting._keep_counts(cfg, n)[flat.round_of_step]
+    smask, fmask = forest_mod.masks_from_keys(
+        step_keys, n, d, jnp.asarray(n_keep),
+        forest_mod.feature_keep_count(d, cfg.rho_feat))
+    return np.asarray(smask), np.asarray(fmask)
+
+
+def assert_trees_equal(t_trees, j_trees, leaf_atol=1e-5):
+    """Port trees (tensors) against JAX trees (arrays): structure exact,
+    leaves within ``leaf_atol``."""
+    for field in ("feature", "threshold"):
+        np.testing.assert_array_equal(getattr(t_trees, field).cpu().numpy(),
+                                      np.asarray(getattr(j_trees, field)),
+                                      err_msg=field)
+    np.testing.assert_allclose(t_trees.leaf_weight.cpu().numpy(),
+                               np.asarray(j_trees.leaf_weight), rtol=0,
+                               atol=leaf_atol)
