@@ -16,12 +16,15 @@ package.  Phases, each of which raises on failure (exit code 1):
       (depth 3 and 5, n in {257, 8192, 262144}, NaN and ±inf rows),
       ``torch.equal`` required;
    b. the histogram kernel's three entry points (round, single tree,
-      staged) against their plain versions at rtol = atol = 1e-5, direct
-      and child forms, T in {1, 5}, K in {1, 3}, n in {1, 1000, 21000,
-      1048576}, the reference shape (d = 23, B = 32, depth 3), a shape of
-      several slot chunks (depth 6, B = 256) and a bin column holding
-      out-of-range ids; two launches must be ``torch.equal``, and up to
+      staged) against their plain versions, max |diff| 0 (``torch.equal``),
+      direct and child forms, T in {1, 5}, K in {1, 3}, n in {1, 1000,
+      21000, 1048576}, the reference shape (d = 23, B = 32, depth 3),
+      depth 6 with B = 256 (8,192 slots: counters in device memory), a bin
+      column holding out-of-range ids, one slot holding every row, and
+      Poisson(3) bins; two launches must be ``torch.equal``, and up to
       n = 21000 the kernel must equal the plain version run on the CPU.
+      The sort kernel that every histogram launch runs first is held
+      against its plain version (a stable ``torch.sort``) on every case.
 3. Serving main path: the committed JAX-trained Dynamic FedGBF checkpoint
    serves 1,048,576 requests through ``serve_stream`` (``impl="fused-
    cuda"``, batch 8192, one mid-stream hot reload), then 65,536 with
@@ -29,13 +32,14 @@ package.  Phases, each of which raises on failure (exit code 1):
    4,096 scores match the committed JAX scores within 1e-5.
 4. Training main path: ``train_fedgbf(dynamic_fedgbf_config(rounds=20),
    backend="local-cuda")`` on ``default_credit_card`` (21,000 x 23) with
-   the committed JAX-drawn masks: exactly 60 histogram launches, bin edges
+   the committed JAX-drawn masks: exactly 60 histogram launches (and 60
+   sorts), bin edges
    and the 78 trees' features and thresholds equal to the committed
    checkpoint, leaves within 1e-5, per-round train metrics within 1e-5 of
    the JAX history.  A second, per-level timed run must give the same
    trees and margins.  The model is saved, loaded and serves 65,536
-   requests through ``fused-cuda``; its first 4,096 margins must match the
-   committed JAX margins within 1e-5.
+   requests through ``fused-cuda``; its first 4,096 margins must equal the
+   committed JAX margins bit for bit.
 5. The other two entry points' paths: round 1 rebuilt with per-tree
    providers (the single-tree entry point) and with the staged provider
    (``histogram_dispatch("cuda")``); both must build the ``local-cuda``
@@ -44,8 +48,12 @@ package.  Phases, each of which raises on failure (exit code 1):
    --backend local-cuda`` writes a checkpoint that ``serve_fedgbf
    --checkpoint`` serves.
 7. Timing at the main path's shapes (CUDA events) beside the plain
-   versions, the bounds and, for the histogram, one ``index_add_``; then a
-   profile of the serving stream.
+   versions, the bounds and, for the histogram, one ``index_add_`` (for
+   the sort, one stable ``torch.sort``); the round histogram also at the
+   training run's level-1 and level-2 child shapes, each launch split into
+   sort and walk with its longest slot segment and the device time of each
+   of its kernels; then profiles of the serving stream and of the 20-round
+   training run.
 8. The kernels line, then the card line, then the result line.
 
 Exits non-zero, printing no result, when CUDA is not available or the port
@@ -56,6 +64,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -81,8 +90,9 @@ REPLACES = {
     "histogram_round": "src/repro/kernels/histogram/train_histogram.py:211",
     "histogram_tree": "src/repro/kernels/histogram/train_histogram.py:100",
     "histogram_staged": "src/repro/kernels/histogram/histogram.py:74",
+    # the first half of every histogram launch, written for the round form
+    "histogram_sort": "src/repro/kernels/histogram/train_histogram.py:211",
 }
-HIST_TOL = 1e-5            # the tests/test_kernels.py bound
 TRAIN_ATOL = 1e-5          # leaves, metric vectors, margins
 REF_ROUNDS = 20
 REF_TREES = 78
@@ -373,22 +383,29 @@ def phase_main_path(device, card) -> dict:
             "x": requests[:BATCH]}
 
 
-def hist_inputs(rng, n, d, num_bins, n_ids, n_trees, k, device,
-                out_of_range=False):
+def hist_inputs(rng, n, d, num_bins, n_ids, n_trees, k, device, kind=""):
     """One histogram-kernel case: bins in [0, B), assign in [0, n_ids),
-    weights 0/1 with some 2.5s, g and h (n, K).  ``out_of_range`` puts ids
-    the kernel must drop (or, where node * B + bin still lands in range,
-    count as JAX counts them) into the last bin column and every 7th
-    assignment."""
+    weights 0/1 with some 2.5s, g and h (n, K).  ``kind``:
+    ``"oor"`` puts ids the kernel must drop (or, where node * B + bin still
+    lands in range, count as JAX counts them) into the last bin column and
+    every 7th assignment; ``"skew"`` puts every row of every (tree,
+    feature) into one slot; ``"poisson"`` bins the first 9 features as
+    Poisson(3) counts, as the synthetic credit data holds them (one bin
+    then takes some 22% of the rows)."""
     import torch
 
     binned = rng.integers(0, num_bins, (n, d)).astype(np.int32)
     assign = rng.integers(0, n_ids, (n_trees, n)).astype(np.int32)
-    if out_of_range:
+    if kind == "oor":
         binned[:, -1] = rng.choice(
             [-1, num_bins, num_bins + 3, -num_bins, 0, num_bins - 1], n)
         assign[:, ::7] = rng.choice([-1, n_ids, n_ids + 2],
                                     assign[:, ::7].shape)
+    elif kind == "skew":
+        binned[:] = num_bins // 2
+        assign[:] = n_ids - 1
+    elif kind == "poisson":
+        binned[:, :9] = np.minimum(rng.poisson(3.0, (n, 9)), num_bins - 1)
     w = ((rng.random((n_trees, n)) < 0.4)
          * rng.choice([1.0, 1.0, 1.0, 2.5], (n_trees, n)))
     arrays = {"binned": binned, "assign": assign,
@@ -402,33 +419,38 @@ def hist_inputs(rng, n, d, num_bins, n_ids, n_trees, k, device,
 
 
 def hist_cases():
-    """(entry, n, d, B, nodes, T, K, child, out_of_range): the reference
-    shape (d = 23, B = 32: levels 0-2 direct and child) at n in {1, 1000,
-    21000, 1048576}, K = 3, T = 1, out-of-range ids, and depth 6 with
-    B = 256 (8,192 slots: many slot chunks)."""
+    """(entry, n, d, B, nodes, T, K, child, kind): the reference shape
+    (d = 23, B = 32: levels 0-2 direct and child) at n in {1, 1000, 21000,
+    1048576}, K = 3, T = 1, out-of-range ids, depth 6 with B = 256 (8,192
+    slots), one slot holding every row, and Poisson(3) bins."""
     cases = []
     for n in (1, 1000, 21000, 1 << 20):
-        cases += [("round", n, 23, 32, 1, 5, 1, False, False),
-                  ("round", n, 23, 32, 2, 5, 1, True, False),
-                  ("staged", n, 23, 32, 4, 1, 1, False, False)]
+        cases += [("round", n, 23, 32, 1, 5, 1, False, ""),
+                  ("round", n, 23, 32, 2, 5, 1, True, ""),
+                  ("staged", n, 23, 32, 4, 1, 1, False, "")]
     for n in (1000, 21000):
-        cases += [("round", n, 23, 32, 4, 5, 3, False, False),
-                  ("round", n, 23, 32, 1, 5, 3, True, False),
-                  ("tree", n, 23, 32, 4, 1, 1, False, False),
-                  ("tree", n, 23, 32, 2, 1, 3, True, False),
-                  ("staged", n, 23, 32, 2, 1, 3, False, False)]
-    cases += [("round", 21000, 23, 32, 4, 5, 1, False, True),
-              ("tree", 21000, 23, 32, 2, 1, 3, True, True),
-              ("staged", 21000, 23, 32, 4, 1, 1, False, True),
-              ("round", 21000, 8, 256, 32, 5, 1, False, False),
-              ("tree", 21000, 8, 256, 16, 1, 3, True, False),
-              ("tree", 1 << 20, 8, 256, 32, 1, 1, False, False),
-              ("staged", 21000, 8, 256, 32, 1, 1, False, False)]
+        cases += [("round", n, 23, 32, 4, 5, 3, False, ""),
+                  ("round", n, 23, 32, 1, 5, 3, True, ""),
+                  ("tree", n, 23, 32, 4, 1, 1, False, ""),
+                  ("tree", n, 23, 32, 2, 1, 3, True, ""),
+                  ("staged", n, 23, 32, 2, 1, 3, False, "")]
+    cases += [("round", 21000, 23, 32, 4, 5, 1, False, "oor"),
+              ("tree", 21000, 23, 32, 2, 1, 3, True, "oor"),
+              ("staged", 21000, 23, 32, 4, 1, 1, False, "oor"),
+              ("round", 21000, 8, 256, 32, 5, 1, False, ""),
+              ("tree", 21000, 8, 256, 16, 1, 3, True, ""),
+              ("tree", 1 << 20, 8, 256, 32, 1, 1, False, ""),
+              ("staged", 21000, 8, 256, 32, 1, 1, False, ""),
+              ("round", 21000, 23, 32, 1, 5, 1, False, "skew"),
+              ("staged", 21000, 23, 32, 1, 1, 1, False, "skew"),
+              ("round", 21000, 23, 32, 1, 5, 1, False, "poisson"),
+              ("round", 21000, 23, 32, 2, 5, 1, True, "poisson")]
     return cases
 
 
 def _hist_call(entry, t, nodes, num_bins, child):
-    """(kernel call, plain call) of one case on the tensors ``t``."""
+    """(kernel call, plain call, sort call, plain sort call) of one case on
+    the tensors ``t``."""
     from repro_torch.core.histogram import stack_stats
     from repro_torch.kernels.histogram import ops, ref
 
@@ -437,47 +459,66 @@ def _hist_call(entry, t, nodes, num_bins, child):
         data = stack_stats(t["g"], t["h"], t["w"][0]).contiguous()
         return (lambda: ops.histogram_staged(ids, data, nodes, num_bins),
                 lambda dev: ref.histogram_staged_ref(
-                    ids.to(dev), data.to(dev), nodes, num_bins))
+                    ids.to(dev), data.to(dev), nodes, num_bins),
+                lambda: ops.sort_slots(ids, None, nodes, num_bins),
+                lambda: ref.sort_slots_ref(ids, None, nodes, num_bins))
     args = (t["binned"], t["assign"], t["g"], t["h"], t["w"])
     return (lambda: ops.histogram_round(*args, nodes, num_bins, child),
             lambda dev: ref.histogram_round_ref(
-                *(a.to(dev) for a in args), nodes, num_bins, child))
+                *(a.to(dev) for a in args), nodes, num_bins, child),
+            lambda: ops.sort_slots(args[0], args[1], nodes, num_bins, child),
+            lambda: ref.sort_slots_ref(args[0], args[1], nodes, num_bins,
+                                       child))
 
 
 def phase_hist_kernels(device) -> dict:
     """The histogram kernel's entry points against their plain versions:
-    within 1e-5 of the plain version on the card, bit-identical across two
-    launches and, up to n = 21000, equal to the plain version on the CPU.
-    Returns the max |kernel - plain on the card| per entry point."""
+    equal to the plain version on the card (max |diff| 0), bit-identical
+    across two launches and, up to n = 21000, equal to the plain version
+    on the CPU; the sort kernel equal to its plain version.  Returns the
+    max |kernel - plain on the card| per kernel (for the sort: of order
+    and starts)."""
     import torch
 
     rng = np.random.default_rng(12)
     err = {"histogram_round": 0.0, "histogram_tree": 0.0,
-           "histogram_staged": 0.0}
-    for entry, n, d, num_bins, nodes, n_trees, k, child, oor in hist_cases():
+           "histogram_staged": 0.0, "histogram_sort": 0.0}
+    for entry, n, d, num_bins, nodes, n_trees, k, child, kind in hist_cases():
         name = f"histogram_{entry}"
         n_ids = 2 * nodes if child else nodes
-        t = hist_inputs(rng, n, d, num_bins, n_ids, n_trees, k, device, oor)
-        kernel, plain = _hist_call(entry, t, nodes, num_bins, child)
+        t = hist_inputs(rng, n, d, num_bins, n_ids, n_trees, k, device, kind)
+        kernel, plain, sort, plain_sort = _hist_call(entry, t, nodes,
+                                                     num_bins, child)
         (a, launched), (b, _) = kernel(), kernel()
         torch.cuda.synchronize()
         what = (f"{name} n={n} d={d} B={num_bins} nodes={nodes} T={n_trees} "
                 f"K={k}{' child' if child else ''}"
-                f"{' out-of-range' if oor else ''}")
+                f"{' ' + kind if kind else ''}")
         check(launched, f"{what}: launched")
         check(torch.equal(a, b), f"{what}: two launches bit-identical")
         want = plain(device)
         diff = float((a - want).abs().max()) if a.numel() else 0.0
         err[name] = max(err[name], diff)
-        check(torch.allclose(a, want, rtol=HIST_TOL, atol=HIST_TOL),
-              f"{what}: within {HIST_TOL} of plain (max |diff| {diff})")
+        check(torch.equal(a, want),
+              f"{what}: equal to the plain version (max |diff| {diff})")
         on_cpu = ""
         if n <= 21000:
             check(torch.equal(a.cpu(), plain("cpu")),
                   f"{what}: equal to the plain version on the CPU")
             on_cpu = ", == plain on CPU"
+        (order, starts), (order_p, starts_p) = sort(), plain_sort()
+        torch.cuda.synchronize()
+        sort_diff = max(
+            float((order.long() - order_p.long()).abs().max())
+            if order.numel() else 0.0,
+            float((starts.long() - starts_p.long()).abs().max()))
+        err["histogram_sort"] = max(err["histogram_sort"], sort_diff)
+        check(torch.equal(order, order_p) and torch.equal(starts, starts_p),
+              f"{what}: sort == plain sort (max |diff| {sort_diff})")
+        longest = int((starts[..., 1:] - starts[..., :-1]).max())
         print(f"kernel vs plain: {what}: max |diff| {diff:.3g}, "
-              f"deterministic{on_cpu}")
+              f"deterministic{on_cpu}; sort equal, longest segment "
+              f"{longest}")
     return err
 
 
@@ -494,15 +535,18 @@ def load_train_oracle(device):
 
 class LevelTimer:
     """Wraps round histogram providers: CUDA events around every call,
-    grouped by the tree level the builder passes."""
+    grouped by the tree level `build_round` passes; keeps each level's first
+    call (child form or not, and its arguments) for the timing phase."""
 
     def __init__(self):
         self.events: dict = {}
+        self.first_call: dict = {}
 
-    def wrap(self, fn):
+    def wrap(self, fn, child: bool):
         import torch
 
         def timed(*args, level=0, **kw):
+            self.first_call.setdefault(level, (child, args))
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -554,6 +598,8 @@ def phase_train(device, card) -> dict:
     check(launches["histogram_round"] == REF_HIST_LAUNCHES,
           f"{launches['histogram_round']} round-histogram launches == "
           f"{REF_HIST_LAUNCHES}")
+    check(launches["histogram_sort"] == REF_HIST_LAUNCHES,
+          f"{launches['histogram_sort']} sorts == {REF_HIST_LAUNCHES}")
     packed = pack_ensemble(model)
     check(packed.total_trees == REF_TREES, f"{REF_TREES} trees")
     check(packed.round_offsets == ckpt.round_offsets, "round structure")
@@ -587,9 +633,10 @@ def phase_train(device, card) -> dict:
     timer = LevelTimer()
     timed = backend_mod.TreeBackend(
         backend_mod.BackendDescriptor(impl="local-cuda", histogram_impl="cuda"),
-        round_histogram_fn=timer.wrap(ops.compute_round_histogram_cuda_fused),
+        round_histogram_fn=timer.wrap(ops.compute_round_histogram_cuda_fused,
+                                      child=False),
         round_child_histogram_fn=timer.wrap(
-            ops.compute_round_histogram_cuda_fused_child))
+            ops.compute_round_histogram_cuda_fused_child, child=True))
     t0 = time.perf_counter()
     model2, history2 = boosting.train_fedgbf(
         ds.x_train, ds.y_train, cfg, masks, backend=timed, device=device)
@@ -627,8 +674,10 @@ def phase_train(device, card) -> dict:
         loaded, torch.from_numpy(requests[:n_gold]).to(device),
         impl="fused-cuda").cpu().numpy()
     served_diff = float(np.abs(margins - golden["margin_fused"]).max())
-    check(served_diff <= SCORE_ATOL, f"trained model's first {n_gold} "
-          f"margins within {SCORE_ATOL} of the JAX margins "
+    # the kernel accumulates with the FMA that XLA's CPU backend contracts
+    # the JAX fused scan into: the margins are the JAX package's, bit for bit
+    check(np.array_equal(margins, golden["margin_fused"]),
+          f"trained model's first {n_gold} margins equal the JAX margins "
           f"(max |diff| {served_diff})")
     score_diff = float(np.abs(scores[:n_gold] - golden["proba_fused"]).max())
     check(score_diff <= SCORE_ATOL, f"scores within {SCORE_ATOL} "
@@ -637,7 +686,8 @@ def phase_train(device, card) -> dict:
           f"fused-cuda, {n_launch} launches, first {n_gold} margins max "
           f"|diff| {served_diff:.3g} vs JAX, scores {score_diff:.3g}")
     return {"model": model, "masks": masks, "launches": launches,
-            "x_train": ds.x_train, "y_train": ds.y_train}
+            "x_train": ds.x_train, "y_train": ds.y_train,
+            "level_calls": timer.first_call}
 
 
 def round1_inputs(train, device):
@@ -726,12 +776,20 @@ def hist_bound(nbytes: float, ops_count: float) -> tuple[float, str]:
                                                            "operations")
 
 
+def longest_segment(starts) -> int:
+    """The most rows any slot holds: the walk's longest serial chain."""
+    return int((starts[..., 1:] - starts[..., :-1]).max())
+
+
 def phase_hist_timing(device, train) -> dict:
     """Each entry point at round 1's level-0 shape (21000 x 23, B = 32, the
     5 trees of round 1 or one of them): kernel, plain version and one
     ``index_add_`` over staged ids, CUDA events; the bound from this run's
     inputs (each read once, the histogram written once; one add per stat
-    of each weighted (tree, row, feature))."""
+    of each weighted (tree, row, feature)).  Each launch is split into its
+    sort (timed alone) and the walk (the rest).  Then the sort kernel alone
+    beside its plain version and one stable ``torch.sort``, and the round
+    histogram at the first call of each level of the training run."""
     import torch
 
     from repro_torch.core.histogram import stack_stats
@@ -753,6 +811,9 @@ def phase_hist_timing(device, train) -> dict:
             def kernel():
                 return ops.histogram_staged(ids, data, nodes, num_bins)
 
+            def sort():
+                return ops.sort_slots(ids, None, nodes, num_bins)
+
             def plain():
                 return ref.histogram_staged_ref(ids, data, nodes, num_bins)
 
@@ -762,6 +823,9 @@ def phase_hist_timing(device, train) -> dict:
             def kernel():
                 return ops.histogram_round(binned, assign, g2, h2, w, nodes,
                                            num_bins, False)
+
+            def sort():
+                return ops.sort_slots(binned, assign, nodes, num_bins)
 
             def plain():
                 return ref.histogram_round_ref(binned, assign, g2, h2, w,
@@ -785,6 +849,7 @@ def phase_hist_timing(device, train) -> dict:
             return acc.index_add_(0, flat_ids, rows)
 
         ms = time_ms(kernel, iters=50, warmup=5)
+        sort_ms = time_ms(sort, iters=50, warmup=5)
         plain_ms = time_ms(plain, iters=5, warmup=1)
         library_ms = time_ms(library, iters=50, warmup=5)
         ops_count = float((w != 0).sum()) * d * 3
@@ -792,10 +857,87 @@ def phase_hist_timing(device, train) -> dict:
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms}
         print(f"time {name:24s} {n}x{d} T={n_trees} level 0: kernel "
-              f"{ms:.5f} ms, plain {plain_ms:.4f} ms, index_add_ "
-              f"{library_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}; "
-              f"{nbytes / 1e6:.3f} MB, {ops_count:.0f} adds)")
+              f"{ms:.5f} ms (sort {sort_ms:.5f} + walk {ms - sort_ms:.5f}; "
+              f"longest segment {longest_segment(sort()[1])} rows), plain "
+              f"{plain_ms:.4f} ms, index_add_ {library_ms:.5f} ms, bound "
+              f"{bound_ms:.6f} ms ({bound_by}; {nbytes / 1e6:.3f} MB, "
+              f"{ops_count:.0f} adds)")
+    out["histogram_sort"] = _time_sort(binned, smask.shape[0], num_bins)
+    _time_levels(train["level_calls"])
     return out
+
+
+def _time_sort(binned, n_trees: int, num_bins: int) -> dict:
+    """The sort kernel alone at the level-0 round shape, beside its plain
+    version and one stable ``torch.sort`` of the same slot ids formed
+    beforehand; bound: the keys and assignments read once, order and
+    starts written once (no arithmetic to speak of)."""
+    import torch
+
+    from repro_torch.kernels.histogram import ops, ref
+
+    n, d = binned.shape
+    assign = torch.zeros((n_trees, n), dtype=torch.int32,
+                         device=binned.device)
+    ids = ref.slot_ids(binned, assign, 1, num_bins)
+    key = torch.where(ids >= 0, ids,
+                      torch.full_like(ids, num_bins)).contiguous()
+    ms = time_ms(lambda: ops.sort_slots(binned, assign, 1, num_bins),
+                 iters=50, warmup=5)
+    plain_ms = time_ms(lambda: ref.sort_slots_ref(binned, assign, 1,
+                                                  num_bins),
+                       iters=10, warmup=2)
+    library_ms = time_ms(lambda: torch.sort(key, dim=-1, stable=True),
+                         iters=50, warmup=5)
+    nbytes = 4 * (binned.numel() + assign.numel() + n_trees * d * n
+                  + n_trees * d * (num_bins + 1))
+    bound_ms, bound_by = hist_bound(nbytes, 0.0)
+    print(f"time {'histogram_sort':24s} {n}x{d} T={n_trees} level 0: kernel "
+          f"{ms:.5f} ms, plain {plain_ms:.4f} ms, torch.sort {library_ms:.5f}"
+          f" ms, bound {bound_ms:.6f} ms ({bound_by}; {nbytes / 1e6:.3f} MB)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def _time_levels(level_calls: dict) -> None:
+    """The round entry point at each level's first call of the training
+    run (level 0 direct, levels 1-2 left children at parent width): the
+    launch, its sort alone, the longest slot segment, and the device time
+    of each of the launch's kernels (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.histogram import ops
+
+    for level, (child, args) in sorted(level_calls.items()):
+        binned, g, h, weight, assign, nodes, num_bins = args[:7]
+        binned, assign = ops._i32(binned), ops._i32(assign)
+        g, h, weight = ops._channels(g), ops._channels(h), ops._f32(weight)
+
+        def kernel():
+            return ops.histogram_round(binned, assign, g, h, weight, nodes,
+                                       num_bins, child)
+
+        def sort():
+            return ops.sort_slots(binned, assign, nodes, num_bins, child)
+
+        ms = time_ms(kernel, iters=50, warmup=5)
+        sort_ms = time_ms(sort, iters=50, warmup=5)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                kernel()
+            torch.cuda.synchronize()
+        steps = ", ".join(
+            f"{re.search(r'[A-Za-z_]+(?=[<(])', key).group(0)} {us / 20:.2f}"
+            for key, us in sorted(device_times(prof).items(),
+                                  key=lambda kv: -kv[1]))
+        print(f"time histogram_round level {level} "
+              f"({'child' if child else 'direct'}, T={assign.shape[0]}, "
+              f"nodes={nodes}): {ms:.5f} ms = sort {sort_ms:.5f} + walk "
+              f"{ms - sort_ms:.5f}; longest segment "
+              f"{longest_segment(sort()[1])} rows; device us per launch: "
+              f"{steps}")
 
 
 def phase_profile(packed, requests) -> None:
@@ -804,7 +946,6 @@ def phase_profile(packed, requests) -> None:
     busy share of the wall clock (the profiler's own host cost included,
     so the share is a lower bound).  Prints "not measured" if the profiler
     records no device activity."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import serve_fedgbf as serve_mod
@@ -818,17 +959,7 @@ def phase_profile(packed, requests) -> None:
         t0 = time.perf_counter()
         serve_mod.serve_stream(slot, reqs, ladder=ladder)
         wall_us = (time.perf_counter() - t0) * 1e6
-    device = {}
-    for e in prof.key_averages():
-        # device-side events only (kernels, copies): a CPU op's self device
-        # time is its kernels' time again
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            device[e.key] = device.get(e.key, 0.0) + us
+    device = device_times(prof)
     if not device:
         print("profile: device time not measured (no CUDA activity seen)")
         return
@@ -838,6 +969,56 @@ def phase_profile(packed, requests) -> None:
           f"({100 * total / wall_us:.1f}% of wall, profiler on)")
     for key, us in sorted(device.items(), key=lambda kv: -kv[1])[:6]:
         print(f"  {us / 16:9.2f} us/batch  {key[:90]}")
+
+
+def device_times(prof) -> dict:
+    """Device time (us) by kernel or copy name from a ``torch.profiler``
+    run: device-side events only, since a CPU op's self device time is its
+    kernels' time again."""
+    from torch.autograd import DeviceType
+
+    device = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            device[e.key] = device.get(e.key, 0.0) + us
+    return device
+
+
+def phase_train_profile(device) -> None:
+    """Where a training round's time goes: ``torch.profiler`` over the
+    20-round reference run; device busy share of the wall clock (the
+    profiler's host cost included, so a lower bound) and the device time
+    by kernel per round."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import boosting
+    from repro_torch.data import synthetic
+
+    ds = synthetic.load("default_credit_card")
+    masks, _, _ = load_train_oracle(device)
+    cfg = boosting.dynamic_fedgbf_config(rounds=REF_ROUNDS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        boosting.train_fedgbf(ds.x_train, ds.y_train, cfg, masks,
+                              backend="local-cuda", device=device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    times = device_times(prof)
+    if not times:
+        print("profile train: device time not measured")
+        return
+    busy_ms = sum(times.values()) / 1e3
+    print(f"profile train: {REF_ROUNDS} rounds, wall {wall_ms:.1f} ms "
+          f"(profiler on), device busy {busy_ms:.2f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}% of wall), "
+          f"{busy_ms / REF_ROUNDS:.3f} ms per round")
+    for key, us in sorted(times.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  {us / REF_ROUNDS:9.1f} us/round  {key[:90]}")
 
 
 def main() -> int:
@@ -864,18 +1045,22 @@ def main() -> int:
     train = phase_train(device, card)
     launches = dict(main_path["launches"])
     launches["histogram_round"] = train["launches"]["histogram_round"]
+    launches["histogram_sort"] = train["launches"]["histogram_sort"]
     launches.update(phase_other_paths(device, train))
     phase_launchers()
     timing = phase_timing(main_path["packed"],
                           torch.from_numpy(main_path["x"]).to(device))
     timing.update(phase_hist_timing(device, train))
     phase_profile(main_path["packed"], main_path["requests"])
+    phase_train_profile(device)
     paths = {
         "ensemble_predict_raw": "serve fused-cuda, 1,048,576 requests",
         "ensemble_predict_binned": "serve cuda, 65,536 requests",
         "histogram_round": "train_fedgbf local-cuda, 20 rounds",
         "histogram_tree": "round 1, per-tree providers",
         "histogram_staged": "round 1, histogram_dispatch('cuda')",
+        "histogram_sort": "train_fedgbf local-cuda, 20 rounds (the first "
+                          "step of every histogram_round launch)",
     }
     shapes = {
         "ensemble_predict_raw": f"{BATCH}x23, 78 trees, depth 3",
@@ -883,6 +1068,7 @@ def main() -> int:
         "histogram_round": "21000x23, B=32, 5 trees, level 0",
         "histogram_tree": "21000x23, B=32, 1 tree, level 0",
         "histogram_staged": "21000x23, B=32, 1 tree, level 0",
+        "histogram_sort": "21000x23, B=32, 5 trees, level 0",
     }
     kernels = []
     for name, shape in shapes.items():

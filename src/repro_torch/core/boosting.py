@@ -34,6 +34,7 @@ from repro_torch.core import binning, dynamic
 from repro_torch.core import forest as forest_mod
 from repro_torch.core import objective as objective_mod
 from repro_torch.core import tree as tree_mod
+from repro_torch.core.fma import fma
 from repro_torch.core.types import (
     EnsembleModel,
     FedGBFConfig,
@@ -154,12 +155,12 @@ def _boost(margin: torch.Tensor, per_tree: torch.Tensor,
            lr: float) -> torch.Tensor:
     """``margin + lr * mean(per_tree, axis=0)`` as XLA's CPU backend
     computes it: the trees summed in order, then one FMA with the float32
-    constant ``lr * (1 / T)`` (float64 product and sum, rounded once)."""
+    constant ``lr * (1 / T)``."""
     total = per_tree[0]
     for p in per_tree[1:]:
         total = total + p
     scale = _f32(_f32(lr) * _f32(1.0 / per_tree.shape[0]))
-    return (total.double() * scale + margin.double()).float()
+    return fma(total, scale, margin)
 
 
 def _as_tensor(a, dtype, device) -> torch.Tensor:

@@ -18,9 +18,8 @@ objective).  Every formula keeps the JAX expression's order of operations.
 The gradients of the logistic and softmax objectives go through ``exp``,
 which XLA's CPU backend computes with its own Cephes polynomial, every
 multiply-add contracted into an FMA and subnormal results flushed to zero.
-``exp_xla`` takes those steps in the same order (each FMA as a float64
-product and sum rounded once to float32; the product of two float32 values
-is exact in float64), so g and h equal the reference's bit for bit on the
+``exp_xla`` takes those steps in the same order (each FMA rounded once,
+``core.fma``), so g and h equal the reference's bit for bit on the
 CPU and on the card alike, and trees built from them do too.  The metric
 vectors and the serving activations use ``torch.exp`` and
 ``torch.sigmoid``: they are held at a tolerance, not bit for bit.
@@ -35,6 +34,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core import metrics
+from repro_torch.core.fma import fma as _fma
 
 
 def _identity(m: torch.Tensor) -> torch.Tensor:
@@ -46,12 +46,6 @@ def _softmax(m: torch.Tensor) -> torch.Tensor:
 
 
 _FLT_MIN = float(torch.finfo(torch.float32).tiny)
-
-
-def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
-    """``a * b + c`` rounded once to float32 (the float64 product of two
-    float32 values is exact)."""
-    return (a.double() * b + c).float()
 
 
 def _flush(x: torch.Tensor) -> torch.Tensor:

@@ -9,13 +9,15 @@ level-0 histograms included.  The providers come from a
 ``core.backend.TreeBackend``; where the JAX package lifts a per-tree
 provider with ``jax.vmap``, the port loops over the tree axis.
 
-Prediction half: every function keeps its JAX counterpart's order of
-floating-point operations as written: each tree's ``scale * leaf`` is
-rounded, then added.  (XLA's CPU backend fuses that product and sum into
-one FMA, so on the CPU the two packages' margins agree within 1e-6, not bit
-for bit; leaf routing is identical.)  The tree axis that ``jax.vmap`` /
-``lax.scan`` walked is a Python loop here; the hand kernels in
-``kernels/ensemble_predict`` replace that loop on the card.
+Prediction half: the single-pass combiners (``predict_packed_weighted``,
+``predict_packed_fused``) add each tree as one FMA, ``acc + scale * leaf``
+rounded once (``core.fma``), because XLA's CPU backend contracts that step
+of their ``lax.scan``: their margins equal the JAX package's bit for bit.
+``predict_packed`` keeps its JAX counterpart's per-round order as written;
+XLA compiles that update in an order not reproduced here, within 1e-6. The
+tree axis that ``jax.vmap`` / ``lax.scan`` walked is a Python loop here;
+the hand kernels in ``kernels/ensemble_predict`` replace that loop on the
+card.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from repro_torch.core import histogram as hist_mod
 from repro_torch.core import split as split_mod
+from repro_torch.core.fma import fma
 from repro_torch.core.types import (
     PackedEnsemble,
     TreeArrays,
@@ -136,14 +139,15 @@ def predict_packed(packed: PackedEnsemble, binned: torch.Tensor
 def predict_packed_weighted(packed: PackedEnsemble, binned: torch.Tensor
                             ) -> torch.Tensor:
     """Single-pass combiner ``base + sum_t tree_scale[t] * tree_t(x)``,
-    accumulated in tree order from ``base`` (the JAX ``lax.scan``)."""
+    accumulated in tree order from ``base`` (the JAX ``lax.scan``), one FMA
+    a tree."""
     out = _margin_init(binned.shape[0], packed.leaf_weight,
                        packed.base_score)
     for t in range(packed.total_trees):
         tree = TreeArrays(packed.feature[t], packed.threshold[t],
                           packed.gain[t], packed.leaf_weight[t])
-        out = out + packed.tree_scale[t] * predict_tree(
-            tree, binned, packed.max_depth)
+        out = fma(packed.tree_scale[t],
+                  predict_tree(tree, binned, packed.max_depth), out)
     return out
 
 
@@ -165,8 +169,8 @@ def predict_packed_fused(model: PackedEnsemble, x: torch.Tensor
     feature, thr_value, leaf, tree_scale = serving_tables(model)
     out = _margin_init(x.shape[0], leaf, model.base_score)
     for t in range(feature.shape[0]):
-        out = out + tree_scale[t] * predict_tree_values(
-            x, feature[t], thr_value[t], leaf[t], model.max_depth)
+        out = fma(tree_scale[t], predict_tree_values(
+            x, feature[t], thr_value[t], leaf[t], model.max_depth), out)
     return out
 
 

@@ -17,9 +17,10 @@
 // f32 -- into shared memory, in chunks of whole trees of at most 48 KB
 // (92 B a tree at depth 3, so the 78-tree serving model is one 7 KB chunk).
 // Each thread descends max_depth levels per tree and accumulates
-// acc + leaf * scale in tree order with __fadd_rn/__fmul_rn: nvcc would
-// otherwise contract the pair into an FMA and break bit equality with the
-// plain PyTorch version (ref.py), whose order is the TPU kernels' own.  The
+// acc + leaf * scale in tree order as one FMA, __fmaf_rn, rounded once: the
+// step XLA's CPU backend contracts the TPU kernels' accumulation into, and
+// the step of the plain PyTorch version (ref.py, through core/fma.py), so
+// the kernel equals both bit for bit.  The
 // raw kernel sanitises each feature it reads (NaN -> -FLT_MAX, +-inf clipped
 // to +-FLT_MAX), without which +inf > FLT_MAX would route an infinite
 // feature right at an unsplit node.
@@ -98,7 +99,7 @@ ensemble_predict_kernel(const T* __restrict__ x,
           }
           idx = 2 * idx + ((f >= 0 && v > t_threshold[node]) ? 1 : 0);
         }
-        acc = __fadd_rn(acc, __fmul_rn(s_leaf[t * n_leaves + idx], s_scale[t]));
+        acc = __fmaf_rn(s_leaf[t * n_leaves + idx], s_scale[t], acc);
       }
     }
   }

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the two ensemble-traversal kernels.
 
 They keep the kernels' order of floating-point operations, which is also
-the TPU kernels' (``repro/kernels/ensemble_predict/ensemble_predict.py``):
-the accumulator starts at 0, each tree adds ``acc + leaf * scale`` in tree
-order, and the wrapper adds ``base_score`` afterwards.  The raw version
+the TPU kernels' (``repro/kernels/ensemble_predict/ensemble_predict.py``)
+as XLA's CPU backend runs them: the accumulator starts at 0, each tree
+adds ``acc + leaf * scale`` in tree order as one FMA (rounded once,
+``core.fma``; ``__fmaf_rn`` in the CUDA kernels), and the wrapper adds ``base_score`` afterwards.  The raw version
 first sanitises its input — NaN to -FLOAT_MAX (routes left), ±inf clipped
 to ±FLOAT_MAX — without which ``+inf > FLOAT_MAX`` would route an infinite
 feature right at an unsplit node.  The CPU tests hold these against the
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.fma import fma
 from repro_torch.core.tree import leaf_index
 from repro_torch.core.types import FLOAT_MAX
 
@@ -29,7 +31,7 @@ def _sweep(x, feature, threshold, leaf, scale, max_depth):
     acc = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
     for t in range(feature.shape[0]):
         idx = leaf_index(x, feature[t], threshold[t], max_depth)
-        acc = acc + leaf[t][idx.long()] * scale[t]
+        acc = fma(leaf[t][idx.long()], scale[t], acc)
     return acc
 
 

@@ -10,7 +10,10 @@
   the backend's per-tree providers and the shared-root delta accumulator;
 * ``compute_histogram_cuda`` — the staged entry point: ``ids = assign * B +
   binned`` and ``[g*w, h*w, w]`` staged before the launch
-  (``ops.compute_histogram_pallas``, ``histogram_dispatch("cuda")``).
+  (``ops.compute_histogram_pallas``, ``histogram_dispatch("cuda")``);
+* ``sort_slots`` — the stable slot sort that every histogram launch runs
+  first (``histogram.cu`` steps 1-3), on its own: each (tree, feature)'s
+  rows listed slot by slot in row order.
 
 All return the ``core.histogram`` providers' layout, (T, nodes, d, B, 2K+1)
 or (nodes, d, B, 2K+1), which is the kernel's own: no padding, no copy.  A
@@ -18,6 +21,11 @@ tensor on the CPU takes the kernel's plain version (``ref.py``); a CUDA
 tensor launches the kernel or raises.  Each of the three public entry
 points counts its own launches in ``launches``, raised only where the
 kernel is launched; the ``_child`` forms launch through their parents.
+Every histogram launch runs the sort kernel first, so each also adds one
+to ``sort_slots.launches``.  The wrappers allocate the scratch with
+``torch.empty`` — the sort's counts, ``order`` (T, d, n) and ``starts``
+(T, d, nodes * B + 1), int32, and the rows' stats packed for the walk;
+the kernels allocate nothing.
 """
 
 from __future__ import annotations
@@ -39,12 +47,16 @@ SOURCE = Path(__file__).with_name("csrc") / "histogram.cu"
 def library() -> ctypes.CDLL:
     """The kernel's shared library, built on first use (``build.py``)."""
     lib = build.load_library("histogram", [SOURCE])
-    lib.histogram_round.argtypes = ([ctypes.c_void_p] * 6
-                                    + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    lib.histogram_staged.argtypes = ([ctypes.c_void_p] * 3
-                                     + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    lib.histogram_round.restype = ctypes.c_int
-    lib.histogram_staged.restype = ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.histogram_scratch_ints.argtypes = [i32] * 5
+    lib.histogram_packed_floats.argtypes = [i32] * 3
+    for fn in (lib.histogram_scratch_ints, lib.histogram_packed_floats):
+        fn.restype = ctypes.c_longlong
+    lib.histogram_sort.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+    lib.histogram_round.argtypes = [ptr] * 6 + [i32] * 7 + [ptr] * 5
+    lib.histogram_staged.argtypes = [ptr] * 3 + [i32] * 5 + [ptr] * 5
+    for fn in (lib.histogram_sort, lib.histogram_round, lib.histogram_staged):
+        fn.restype = i32
     return lib
 
 
@@ -76,6 +88,64 @@ def _launch(kernel: str, out: torch.Tensor, *args) -> None:
         raise RuntimeError(f"{kernel} launch failed with CUDA error {err}")
 
 
+def _sort_scratch(n: int, d: int, t: int, num_nodes: int, num_bins: int,
+                  device: torch.device) -> tuple:
+    """(counts, order, starts) of the sort: int32, uninitialised."""
+    size = library().histogram_scratch_ints(n, d, t, num_nodes, num_bins)
+    if size < 0:
+        raise ValueError(f"histogram kernel: unsupported shape n={n} d={d} "
+                         f"T={t} nodes={num_nodes} B={num_bins}")
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=device)
+
+    return (empty(size), empty(t, d, n),
+            empty(t, d, num_nodes * num_bins + 1))
+
+
+def _hist_scratch(n: int, d: int, t: int, num_nodes: int, num_bins: int,
+                  n_stats: int, device: torch.device) -> tuple:
+    """One histogram launch's scratch: the sort's, then the rows' stats
+    packed for the walk (float32)."""
+    packed = torch.empty(library().histogram_packed_floats(n, t, n_stats),
+                         dtype=torch.float32, device=device)
+    return _sort_scratch(n, d, t, num_nodes, num_bins, device) + (packed,)
+
+
+def _ptrs(tensors: tuple) -> list:
+    return [a.data_ptr() for a in tensors]
+
+
+def sort_slots(keys: torch.Tensor, assign: torch.Tensor | None,
+               num_nodes: int, num_bins: int, child: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sort kernel alone: keys (n, d) i32 — bins with ``assign`` (T, n)
+    i32, or staged ids ``assign * B + binned`` when ``assign`` is None (T =
+    1) -> (order (T, d, n) i32, starts (T, d, num_nodes * B + 1) i32).
+    Slot s of (t, f) lists its rows in increasing row order at
+    ``order[t, f, starts[t, f, s]:starts[t, f, s + 1]]``; dropped ids
+    (outside ``[0, num_nodes * B)``) are left out and the tail past
+    ``starts[t, f, -1]`` is -1.  Counts its launches."""
+    if keys.dim() != 2 or (assign is not None and assign.dim() != 2):
+        raise ValueError("sort_slots takes keys (n, d) and assign (T, n)")
+    n, d = keys.shape
+    t = 1 if assign is None else assign.shape[0]
+    device = keys.device
+    _check("keys", keys, torch.int32, (n, d), device)
+    if assign is not None:
+        _check("assign", assign, torch.int32, (t, n), device)
+    if _device_kind(device, "sort_slots") == "cpu":
+        return ref.sort_slots_ref(keys, assign, num_nodes, num_bins, child)
+    counts, order, starts = _sort_scratch(n, d, t, num_nodes, num_bins,
+                                          device)
+    _launch("histogram_sort", order, keys.data_ptr(),
+            None if assign is None else assign.data_ptr(), counts.data_ptr(),
+            order.data_ptr(), starts.data_ptr(), n, d, t, num_nodes,
+            num_bins, int(child), int(assign is None))
+    sort_slots.launches += 1
+    return order, starts
+
+
 def histogram_round(binned: torch.Tensor, assign: torch.Tensor,
                     g: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
                     num_nodes: int, num_bins: int,
@@ -101,9 +171,10 @@ def histogram_round(binned: torch.Tensor, assign: torch.Tensor,
                       dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out, False
+    scratch = _hist_scratch(n, d, t, num_nodes, num_bins, 2 * k + 1, device)
     _launch("histogram_round", out, binned.data_ptr(), assign.data_ptr(),
             g.data_ptr(), h.data_ptr(), w.data_ptr(), out.data_ptr(), n, d, t,
-            k, num_nodes, num_bins, int(child))
+            k, num_nodes, num_bins, int(child), *_ptrs(scratch))
     return out, True
 
 
@@ -124,8 +195,9 @@ def histogram_staged(ids: torch.Tensor, data: torch.Tensor, num_nodes: int,
                       device=device)
     if out.numel() == 0:
         return out, False
+    scratch = _hist_scratch(n, d, 1, num_nodes, num_bins, s, device)
     _launch("histogram_staged", out, ids.data_ptr(), data.data_ptr(),
-            out.data_ptr(), n, d, s, num_nodes, num_bins)
+            out.data_ptr(), n, d, s, num_nodes, num_bins, *_ptrs(scratch))
     return out, True
 
 
@@ -161,7 +233,7 @@ def compute_round_histogram_cuda_fused(binned, g, h, weight, assign,
     out, launched = histogram_round(
         _i32(binned), _i32(assign), _channels(g), _channels(h), _f32(weight),
         num_nodes, num_bins, child)
-    compute_round_histogram_cuda_fused.launches += launched
+    _count(compute_round_histogram_cuda_fused, launched)
     return out
 
 
@@ -182,7 +254,7 @@ def compute_histogram_cuda_fused(binned, g, h, weight, assign,
     out, launched = histogram_round(
         _i32(binned), _i32(assign)[None], _channels(g), _channels(h),
         _f32(weight)[None], num_nodes, num_bins, child)
-    compute_histogram_cuda_fused.launches += launched
+    _count(compute_histogram_cuda_fused, launched)
     return out[0]
 
 
@@ -202,15 +274,23 @@ def compute_histogram_cuda(binned, g, h, weight, assign, num_nodes: int,
     data = stack_stats(_f32(g), _f32(h), _f32(weight)).contiguous()
     out, launched = histogram_staged(ids.contiguous(), data, num_nodes,
                                      num_bins)
-    compute_histogram_cuda.launches += launched
+    _count(compute_histogram_cuda, launched)
     return out
 
 
-#: entry-point name -> the wrapper that counts its launches.
+def _count(wrapper, launched: bool) -> None:
+    """One launch of ``wrapper``'s entry point: its walk and, before it,
+    the sort kernel."""
+    wrapper.launches += launched
+    sort_slots.launches += launched
+
+
+#: kernel name -> the wrapper that counts its launches.
 KERNELS = {
     "histogram_round": compute_round_histogram_cuda_fused,
     "histogram_tree": compute_histogram_cuda_fused,
     "histogram_staged": compute_histogram_cuda,
+    "histogram_sort": sort_slots,
 }
 
 

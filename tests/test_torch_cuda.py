@@ -28,21 +28,25 @@ def smoke():
 
 @pytest.mark.cuda
 def test_histogram_kernel_on_card(smoke):
-    """Every histogram entry point within 1e-5 of its plain version,
-    bit-identical across two launches, equal to the plain version on the
-    CPU up to n = 21000."""
+    """Every histogram entry point equal to its plain version (max |diff|
+    0), bit-identical across two launches, equal to the plain version on
+    the CPU up to n = 21000; the sort kernel equal to its plain version."""
     chip_smoke, device = smoke
     err = chip_smoke.phase_hist_kernels(device)
-    assert max(err.values()) <= chip_smoke.HIST_TOL
+    assert set(err) == {"histogram_round", "histogram_tree",
+                        "histogram_staged", "histogram_sort"}
+    assert max(err.values()) == 0.0
 
 
 @pytest.mark.cuda
 def test_training_paths_on_card(smoke):
-    """60 round-histogram launches build the checkpoint's 78 trees; the
-    single-tree and staged entry points rebuild round 1."""
+    """60 round-histogram launches (each sorting first) build the
+    checkpoint's 78 trees; the single-tree and staged entry points rebuild
+    round 1."""
     chip_smoke, device = smoke
     train = chip_smoke.phase_train(device, chip_smoke.card_line())
     assert train["launches"]["histogram_round"] == 60
+    assert train["launches"]["histogram_sort"] == 60
     assert chip_smoke.phase_other_paths(device, train) == {
         "histogram_tree": 15, "histogram_staged": 15}
 

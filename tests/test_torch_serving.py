@@ -147,8 +147,8 @@ def test_refused_candidate_never_perturbs_serving(model_a, x_test, tmp_path):
 
 def test_scores_match_jax_service(model_a, x_test):
     """Same rows, same checkpoint: the port's fused-cuda stream against the
-    JAX fused stream, inf rows rejected alike (1e-6: the JAX CPU backend
-    accumulates with FMAs, and sigmoids may differ in the last ulp)."""
+    JAX fused stream, inf rows rejected alike (1e-6: the margins are equal,
+    the sigmoids may differ in the last ulp)."""
     x = np.array(x_test[:600], np.float32)
     x[3, 4] = np.inf
     x[5, :] = np.nan
