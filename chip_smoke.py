@@ -12,9 +12,13 @@ package.  Phases, each of which raises on failure (exit code 1):
    libraries' ``nvcc`` builds, started together, with what ``-Xptxas -v``
    reports.
 2. Kernels vs plain versions on the card:
-   a. both ensemble-traversal kernels against their plain PyTorch versions
-      (depth 3 and 5, n in {257, 8192, 262144}, NaN and ±inf rows),
-      ``torch.equal`` required;
+   a. both ensemble-traversal kernels against their plain PyTorch versions,
+      ``torch.equal`` required, and two launches bit-identical: depth 3 and
+      5 at n in {257, 8192, 262144}, and the edges of the work split (one
+      row, a tile's rows -1 and +1, one tree, one tree past the lanes and
+      past a chunk, depth 0, 1 and 12, d = 1 and 4096), NaN and ±inf rows,
+      unsplit nodes with low thresholds, splits at FLOAT_MAX and features
+      past d;
    b. the histogram kernel's three entry points (round, single tree,
       staged) against their plain versions, max |diff| 0 (``torch.equal``),
       direct and child forms, T in {1, 5}, K in {1, 3}, n in {1, 1000,
@@ -49,11 +53,14 @@ package.  Phases, each of which raises on failure (exit code 1):
    --checkpoint`` serves.
 7. Timing at the main path's shapes (CUDA events) beside the plain
    versions, the bounds and, for the histogram, one ``index_add_`` (for
-   the sort, one stable ``torch.sort``); the round histogram also at the
-   training run's level-1 and level-2 child shapes, each launch split into
-   sort and walk with its longest slot segment and the device time of each
-   of its kernels; then profiles of the serving stream and of the 20-round
-   training run.
+   the sort, one stable ``torch.sort``); the traversal kernels also at
+   32,768 to 262,144 rows, beside a launch floor, each batch size timed
+   with one thread a row and with 8 and with the depth-3 and the
+   runtime-depth instance (``ops.launch_config`` picks one of each); the
+   round histogram also at the training run's level-1 and level-2 child
+   shapes, each launch split into sort and walk with its longest slot
+   segment and the device time of each of its kernels; then profiles of
+   the serving stream and of the 20-round training run.
 8. The kernels line, then the card line, then the result line.
 
 Exits non-zero, printing no result, when CUDA is not available or the port
@@ -111,6 +118,8 @@ STREAM = 1 << 20
 STREAM_BINNED = 1 << 16
 BATCH = 8192
 RELOAD_AT_BATCH = 64
+#: the traversal kernels' timed batch sizes, the serving batch first
+TIMED_ROWS = (BATCH, 1 << 15, 1 << 16, 3 << 15, 1 << 17, 3 << 16, 1 << 18)
 
 
 def check(ok: bool, what: str) -> None:
@@ -127,19 +136,28 @@ def card_line() -> str:
 
 
 def random_ensemble(rng, n_trees, depth, d, num_bins, device):
-    """A valid packed-table ensemble: splits on bins [0, B-2], a fifth of
-    the nodes unsplit (feature -1, threshold B), sorted edges."""
+    """A packed-table ensemble: splits on bins [0, B-2], a fifth of the
+    nodes unsplit (feature -1, threshold B), sorted edges; and the tables'
+    edges, which routing must get right as well: unsplit nodes whose
+    threshold the values exceed (bin -1, value -FLOAT_MAX: they still
+    route left), splits at bin B-1 (value threshold FLOAT_MAX, which only
+    +inf would exceed unless sanitised) and features past d (clamped to
+    d-1)."""
     import torch
 
-    from repro_torch.core.types import float_thresholds
+    from repro_torch.core.types import FLOAT_MAX, float_thresholds
 
     n_internal = 2 ** depth - 1
-    feature = rng.integers(0, d, (n_trees, n_internal)).astype(np.int32)
-    threshold = rng.integers(0, num_bins - 1,
-                             (n_trees, n_internal)).astype(np.int32)
-    unsplit = rng.random((n_trees, n_internal)) < 0.2
+    shape = (n_trees, n_internal)
+    feature = rng.integers(0, d, shape).astype(np.int32)
+    threshold = rng.integers(0, num_bins - 1, shape).astype(np.int32)
+    edge = rng.random(shape)
+    threshold[edge < 0.05] = num_bins - 1
+    feature[(edge >= 0.05) & (edge < 0.08)] = d + 3
+    unsplit = rng.random(shape) < 0.2
     feature[unsplit] = -1
-    threshold[unsplit] = num_bins
+    threshold[unsplit] = np.where(rng.random(unsplit.sum()) < 0.5, num_bins,
+                                  -1)
     edges = np.sort(rng.normal(size=(d, num_bins - 1)), axis=1)
     tables = {
         "feature": feature,
@@ -151,9 +169,13 @@ def random_ensemble(rng, n_trees, depth, d, num_bins, device):
          for k, v in tables.items()}
     t["leaf"] = t["leaf"].float()
     t["scale"] = t["scale"].float()
-    t["thr_value"] = float_thresholds(
+    thr_value = float_thresholds(
         t["feature"], t["threshold"],
-        torch.from_numpy(edges.astype(np.float32)).to(device)).contiguous()
+        torch.from_numpy(edges.astype(np.float32)).to(device))
+    # the value-space twin of an unsplit node's low threshold
+    t["thr_value"] = torch.where(
+        t["threshold"] < 0, torch.full_like(thr_value, -FLOAT_MAX),
+        thr_value).contiguous()
     return t
 
 
@@ -165,9 +187,9 @@ def hard_rows(rng, n, d, device):
     x[rng.random((n, d)) < 0.02] = np.nan
     x[rng.random((n, d)) < 0.01] = np.inf
     x[rng.random((n, d)) < 0.01] = -np.inf
-    x[0, :] = np.nan
-    x[1, :] = np.inf
-    x[2, :] = -np.inf
+    x[0:1, :] = np.nan        # slices: n may be below 3
+    x[1:2, :] = np.inf
+    x[2:3, :] = -np.inf
     return torch.from_numpy(x).to(device)
 
 
@@ -207,108 +229,184 @@ def bound(x, tables, n_out, n_trees, depth) -> tuple[float, str]:
                                                            "operations")
 
 
-def smem_bytes(n_trees: int, depth: int) -> int:
-    """Dynamic shared memory of one block, as the launch in
-    ensemble_predict.cu sizes it: whole trees up to 48 KB."""
-    per_tree = (2 ** depth - 1) * 8 + (2 ** depth + 1) * 4
-    return min(n_trees, 48 * 1024 // per_tree) * per_tree
-
-
-def phase_build() -> dict:
+def phase_build() -> None:
     """Both kernel libraries, one ``nvcc`` each, started together."""
     from repro_torch.kernels import build
     from repro_torch.kernels.ensemble_predict import ops as ep_ops
     from repro_torch.kernels.histogram import ops as hist_ops
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        futures = [pool.submit(ep_ops.library), pool.submit(hist_ops.library)]
-        for f in futures:
+    jobs = [ep_ops.library, hist_ops.library]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        for f in [pool.submit(j) for j in jobs]:
             f.result()
     wall = time.perf_counter() - t0
-    print(f"build: both libraries in {wall:.2f} s ({build.build_count} nvcc "
-          f"runs, in parallel)")
-    for name in ("ensemble_predict", "histogram"):
+    print(f"build: {len(jobs)} libraries in {wall:.2f} s "
+          f"({build.build_count} nvcc runs, in parallel)")
+    for name in build.reports:
         report = build.reports[name]
         print(f"build: {name}: nvcc {report.seconds:.2f} s -> "
               f"{report.path.name}")
         for line in report.log.splitlines():
             if "ptxas info" in line or "spill" in line:
                 print(f"  {line.strip()}")
-    return {"build_s": wall}
+
+
+def traversal_cases() -> list:
+    """(n, trees, depth, d) of phase 2a: PR 11's cases (depth 3 and 5, n in
+    {257, 8192, 262144}) and the edges of the kernel's work split (sizes
+    from ``ops.launch_config``): one row, a tile's rows -1 and +1, one
+    tree (256-row tiles), one tree past the lanes and past a chunk, one
+    thread a row (262,144 rows, and a ragged last tile), depth 0, 1 and 12
+    (one tree a chunk, above 48 KB), d = 1 and d = 4096 (x read from
+    global memory)."""
+    from repro_torch.kernels.ensemble_predict import ops
+
+    def rows(n_trees, depth, d):
+        return ops.launch_config(1, d, n_trees, depth, 132).rows
+
+    def past_chunk(depth, d):
+        return ops.launch_config(1, d, 1 << 20, depth, 132).chunk + 1
+
+    cases = [(n, 78, 3, 23) for n in (257, 8192, 262144)]
+    cases += [(n, 300, 5, 23) for n in (257, 8192, 262144)]
+    # one thread a row from two 256-row tiles an SM on: its ragged edge
+    cases += [(2 * ops.THREADS * 132 + 1, 78, 3, 23)]
+    r = rows(78, 3, 23)
+    cases += [(1, 78, 3, 23), (r - 1, 78, 3, 23), (r + 1, 78, 3, 23),
+              (rows(1, 3, 23) + 1, 1, 3, 23), (8192, 1, 3, 23),
+              (r + 1, 9, 3, 23), (r + 1, past_chunk(3, 23), 3, 23),
+              (8192, past_chunk(3, 23), 3, 23),
+              (r + 1, 78, 0, 23), (8192, 78, 1, 23), (r - 1, 78, 1, 23),
+              (rows(3, 12, 23) + 1, 3, 12, 23), (8192, 2, 12, 23),
+              (1, 1, 12, 1), (8192, 78, 3, 1), (r + 1, 78, 3, 1),
+              (8192, 78, 3, 4096), (1, 300, 5, 4096),
+              (rows(past_chunk(5, 4096), 5, 4096) - 1, past_chunk(5, 4096),
+               5, 4096)]
+    return cases
 
 
 def phase_kernels(device) -> dict:
-    """Both kernels against their plain versions; max |kernel - plain|."""
+    """Both kernels against their plain versions, ``torch.equal``, and two
+    launches bit-identical, at every case of ``traversal_cases``; max
+    |kernel - plain|."""
     import torch
 
     from repro_torch.kernels.ensemble_predict import ops, ref
 
     rng = np.random.default_rng(11)
-    d, num_bins = 23, 32
+    num_bins = 32
     err = {"ensemble_predict_raw": 0.0, "ensemble_predict_binned": 0.0}
-    for depth, n_trees in ((3, 78), (5, 300)):
+    for n, n_trees, depth, d in traversal_cases():
         t = random_ensemble(rng, n_trees, depth, d, num_bins, device)
-        for n in (257, 8192, 262144):
-            x = hard_rows(rng, n, d, device)
-            binned = torch.from_numpy(
-                rng.integers(0, num_bins, (n, d)).astype(np.int32)).to(device)
-            cases = (
-                ("ensemble_predict_raw", x, t["thr_value"],
-                 ref.predict_forest_raw_ref),
-                ("ensemble_predict_binned", binned, t["threshold"],
-                 ref.predict_forest_binned_ref),
-            )
-            for name, xin, thr, plain_fn in cases:
-                got, launched = ops.sweep(name, xin, t["feature"], thr,
-                                          t["leaf"], t["scale"], depth)
-                want = plain_fn(xin, t["feature"], thr, t["leaf"],
-                                t["scale"], depth)
-                torch.cuda.synchronize()
-                check(launched, f"{name} launched")
-                diff = float((got - want).abs().max())
-                err[name] = max(err[name], diff)
-                check(torch.equal(got, want),
-                      f"{name} == plain at depth {depth}, {n_trees} trees, "
-                      f"n={n} (max |diff| {diff})")
-                print(f"kernel == plain: {name:24s} depth {depth} "
-                      f"trees {n_trees:3d} n {n:6d}: equal")
+        x = hard_rows(rng, n, d, device)
+        binned = torch.from_numpy(
+            rng.integers(0, num_bins, (n, d)).astype(np.int32)).to(device)
+        cases = (
+            ("ensemble_predict_raw", x, t["thr_value"],
+             ref.predict_forest_raw_ref),
+            ("ensemble_predict_binned", binned, t["threshold"],
+             ref.predict_forest_binned_ref),
+        )
+        for name, xin, thr, plain_fn in cases:
+            args = (xin, t["feature"], thr, t["leaf"], t["scale"], depth)
+            cfg = ops.config_for(name, xin, n_trees, depth)
+            (got, launched), (again, _) = (ops.sweep(name, *args),
+                                           ops.sweep(name, *args))
+            want = plain_fn(*args)
+            torch.cuda.synchronize()
+            what = (f"{name} depth {depth}, {n_trees} trees, n={n}, d={d}")
+            check(launched, f"{what}: launched")
+            check(torch.equal(got, again), f"{what}: two launches equal")
+            diff = float((got - want).abs().max())
+            err[name] = max(err[name], diff)
+            check(torch.equal(got, want),
+                  f"{what}: == plain (max |diff| {diff})")
+            print(f"kernel == plain: {what}: equal, deterministic "
+                  f"(rows {cfg.rows} x lanes {cfg.lanes}, chunk {cfg.chunk},"
+                  f" x {'staged' if cfg.stage_x else 'global'}, "
+                  f"{'depth-3' if cfg.unrolled else 'runtime-depth'} "
+                  f"instance, "
+                  f"{cfg.smem_bytes} B, grid {cfg.grid})")
     return err
 
 
-def phase_timing(packed, x) -> dict:
-    """Kernel vs plain version at the serving shape, CUDA events."""
+def phase_timing(packed, requests) -> dict:
+    """Both kernels at the serving shape (8192 x 23, 78 trees, depth 3)
+    and at the larger ``TIMED_ROWS`` (32,768 to 262,144 rows): kernel and
+    bound (CUDA events, held stream), beside the launch floor (one in-place
+    one-element torch op, timed the same way) and the sizes
+    ``ops.config_for`` picks; the plain version at 8192 and 262,144 rows.
+    Each batch size is also timed with the other choice of threads a row
+    (1 or 8) and with the runtime-depth instance in place of the depth-3
+    one, so the run shows where each choice of ``ops.launch_config`` pays;
+    all three must give the same bits.  Returns the 8192-row numbers."""
+    import torch
+
     from repro_torch.core.binning import bin_data
     from repro_torch.core.types import serving_tables
     from repro_torch.kernels.ensemble_predict import ops, ref
 
+    device = packed.feature.device
     feature, thr_value, leaf, scale = serving_tables(packed)
-    binned = bin_data(x, packed.bin_edges)
     threshold = packed.threshold.contiguous()
     depth, n_trees = packed.max_depth, packed.total_trees
-    runs = {
-        "ensemble_predict_raw": (x, thr_value, ref.predict_forest_raw_ref),
-        "ensemble_predict_binned": (binned, threshold,
-                                    ref.predict_forest_binned_ref),
-    }
+    one = torch.zeros(1, device=device)
+    floor_ms = time_ms(lambda: one.add_(1.0), iters=200, warmup=20)
+    print(f"time launch floor (in-place one-element add): {floor_ms:.5f} ms")
     out = {}
-    for name, (xin, thr, plain_fn) in runs.items():
-        def kernel():
-            return ops.sweep(name, xin, feature, thr, leaf, scale, depth)
-
-        def plain():
-            return plain_fn(xin, feature, thr, leaf, scale, depth)
-
-        ms = time_ms(kernel, iters=200, warmup=20)
-        plain_ms = time_ms(plain, iters=10, warmup=2)
-        bound_ms, bound_by = bound(xin, (feature, thr, leaf, scale),
-                                   xin.shape[0], n_trees, depth)
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by}
-        print(f"time {name:24s} {xin.shape[0]}x{xin.shape[1]} "
-              f"{n_trees} trees: kernel {ms:.5f} ms, plain {plain_ms:.4f} "
-              f"ms, bound {bound_ms:.6f} ms ({bound_by}), dynamic shared "
-              f"memory {smem_bytes(n_trees, depth)} B/block")
+    for n in TIMED_ROWS:
+        check(requests.shape[0] >= n, f"{n} requests to time")
+        x = torch.from_numpy(
+            np.ascontiguousarray(requests[:n], np.float32)).to(device)
+        binned = bin_data(x, packed.bin_edges)
+        runs = {
+            "ensemble_predict_raw": (x, thr_value,
+                                     ref.predict_forest_raw_ref),
+            "ensemble_predict_binned": (binned, threshold,
+                                        ref.predict_forest_binned_ref),
+        }
+        for name, (xin, thr, plain_fn) in runs.items():
+            args = (xin, feature, thr, leaf, scale, depth)
+            cfg = ops.config_for(name, xin, n_trees, depth)
+            check(cfg.unrolled, f"{name}: depth {depth} runs unrolled")
+            others = {
+                "lanes": ops.config_for(
+                    name, xin, n_trees, depth,
+                    lanes=ops.MAX_LANES if cfg.lanes == 1 else 1),
+                "depth": ops.config_for(name, xin, n_trees, depth,
+                                        unrolled=False),
+            }
+            want = ops.sweep(name, *args)[0]
+            for what, c in others.items():
+                check(torch.equal(ops.sweep(name, *args, cfg=c)[0], want),
+                      f"{name} n={n}: the other {what} gives the same "
+                      f"bits")
+            ms, lanes_ms, rolled_ms = (
+                time_ms(lambda c=c: ops.sweep(name, *args, cfg=c),
+                        iters=200, warmup=20)
+                for c in (cfg, others["lanes"], others["depth"]))
+            bound_ms, bound_by = bound(xin, (feature, thr, leaf, scale),
+                                       n, n_trees, depth)
+            other = others["lanes"]
+            line = (f"time {name:24s} {n}x{xin.shape[1]} {n_trees} trees: "
+                    f"kernel {ms:.5f} ms (rows {cfg.rows} x lanes "
+                    f"{cfg.lanes}, chunk {cfg.chunk}, grid {cfg.grid}, "
+                    f"{cfg.smem_bytes} B/block), with lanes {other.lanes} "
+                    f"{lanes_ms:.5f} ms (grid {other.grid}, "
+                    f"{other.smem_bytes} B/block), runtime-depth instance "
+                    f"{rolled_ms:.5f} ms (grid {others['depth'].grid}), "
+                    f"bound {bound_ms:.6f} ms ({bound_by}), launch floor "
+                    f"{floor_ms:.5f} ms")
+            if n in (BATCH, 1 << 18):
+                plain_ms = time_ms(lambda: plain_fn(*args),
+                                   iters=5 if n > BATCH else 10, warmup=2)
+                line += f", plain {plain_ms:.4f} ms"
+            print(line)
+            if n == BATCH:
+                out[name] = {"ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "launch_floor_ms": floor_ms}
     return out
 
 
@@ -379,8 +477,7 @@ def phase_main_path(device, card) -> dict:
               f"p50={q[0.5]:.4f} ms p90={q[0.9]:.4f} ms "
               f"p99={q[0.99]:.4f} ms, {n_launch} launches, "
               f"max |score - JAX| {diff:.3g}")
-    return {"packed": packed, "launches": launches, "requests": requests,
-            "x": requests[:BATCH]}
+    return {"packed": packed, "launches": launches, "requests": requests}
 
 
 def hist_inputs(rng, n, d, num_bins, n_ids, n_trees, k, device, kind=""):
@@ -1048,8 +1145,7 @@ def main() -> int:
     launches["histogram_sort"] = train["launches"]["histogram_sort"]
     launches.update(phase_other_paths(device, train))
     phase_launchers()
-    timing = phase_timing(main_path["packed"],
-                          torch.from_numpy(main_path["x"]).to(device))
+    timing = phase_timing(main_path["packed"], main_path["requests"])
     timing.update(phase_hist_timing(device, train))
     phase_profile(main_path["packed"], main_path["requests"])
     phase_train_profile(device)

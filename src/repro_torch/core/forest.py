@@ -104,4 +104,4 @@ def build_forest(binned, g, h, sample_mask, feature_mask, cfg: TreeConfig,
     trees, per_tree = build_forest_per_tree(binned, g, h, sample_mask,
                                             feature_mask, cfg, backend,
                                             root_delta_rows)
-    return trees, per_tree.sum(0) / per_tree.shape[0]
+    return trees, tree_mod._mean0(per_tree)

@@ -13,8 +13,10 @@ Prediction half: the single-pass combiners (``predict_packed_weighted``,
 ``predict_packed_fused``) add each tree as one FMA, ``acc + scale * leaf``
 rounded once (``core.fma``), because XLA's CPU backend contracts that step
 of their ``lax.scan``: their margins equal the JAX package's bit for bit.
-``predict_packed`` keeps its JAX counterpart's per-round order as written;
-XLA compiles that update in an order not reproduced here, within 1e-6. The
+``predict_packed`` and ``predict_forest`` take each round's mean as XLA
+computes ``jnp.mean`` (``_mean0``: the sum in tree order times the float32
+``1 / k``) and add ``lr * mean`` in two roundings, as written: equal to
+the JAX package's margins bit for bit too.  The
 tree axis that ``jax.vmap`` / ``lax.scan`` walked is a Python loop here;
 the hand kernels in ``kernels/ensemble_predict`` replace that loop on the
 card.
@@ -110,9 +112,14 @@ def predict_forest(trees: TreeArrays, binned: torch.Tensor,
 
 
 def _mean0(per_tree: torch.Tensor) -> torch.Tensor:
-    # sum, then divide, on every device: torch.mean on CUDA multiplies by
-    # the reciprocal instead, which is not what jnp.mean does
-    return per_tree.sum(0) / per_tree.shape[0]
+    """``jnp.mean(per_tree, axis=0)`` as XLA's CPU backend computes it: the
+    trees summed in order, then one multiply by the float32 reciprocal
+    ``1 / k`` (XLA rewrites the division by a constant so).  A division
+    by ``k`` differs from it in the last ulp."""
+    total = per_tree[0]
+    for p in per_tree[1:]:
+        total = total + p
+    return total * (1.0 / per_tree.shape[0])
 
 
 def _margin_init(n: int, leaf: torch.Tensor, base_score: float

@@ -6,13 +6,15 @@ Tolerances: leaf routing is exact. JAX's CPU backend contracts every
 accumulation step ``acc + scale * leaf`` into one FMA, in the scan of
 ``fused``/``weighted`` and in the interpret-mode Pallas kernels alike;
 the port takes the same step (``core.fma``, ``__fmaf_rn`` in the CUDA
-kernels), so those margins are exact. 1e-6 stays where the port does not
-follow XLA's program: ``packed`` and ``loop`` (the per-round ``out + lr
-* mean``, whose compiled order an FMA does not reproduce either), the
-kernel wrappers against a base-first JAX path at a non-zero base (the
-kernels add ``base_score`` last), and the activations (``torch.sigmoid``
-and ``jax.nn.sigmoid`` may differ in the last ulp). Interpret mode is
-slow, so the Pallas cases use at most 8 trees and 300 rows.
+kernels), so those margins are exact. ``packed`` and ``loop`` are exact
+too: their per-round mean is ``jnp.mean`` as XLA's CPU backend computes
+it (the sum in tree order times the float32 ``1 / k``; ``tree._mean0``).
+1e-6 stays where the two programs differ by design: the kernel wrappers
+against a base-first JAX path at a non-zero base (the CUDA kernels, like
+the JAX Pallas wrappers, start from 0 and add ``base_score`` last), and
+the activations (``torch.sigmoid`` and ``jax.nn.sigmoid`` may differ in
+the last ulp). Interpret mode is slow, so the Pallas cases use at most 8
+trees and 300 rows.
 """
 
 import jax.numpy as jnp
@@ -160,7 +162,7 @@ def test_predict_impls_match_jax(base):
                            ("fused-cuda", "fused"), ("cuda", "weighted")):
         want = np.asarray(j_boosting.predict(jp, jx, impl=j_impl))
         got = t_boosting.predict(tp, tx, impl=t_impl).numpy()
-        if t_impl in ("fused", "weighted") or (
+        if t_impl in ("fused", "weighted", "packed", "loop") or (
                 base == 0.0 and t_impl in ("fused-cuda", "cuda")):
             np.testing.assert_array_equal(got, want, err_msg=t_impl)
         else:
@@ -183,6 +185,22 @@ def test_predict_impls_match_jax(base):
         rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("k", [1, 2, 3, 5])
+def test_mean0_equals_jnp_mean(k):
+    """``tree._mean0`` is ``jnp.mean(axis=0)`` bit for bit, for (k, n) and
+    (k, n, K) stacks; a plain division by ``k`` is not (it differs in the
+    last ulp where ``1 / k`` is inexact)."""
+    rng = np.random.default_rng(60 + k)
+    for shape in ((k, 1000), (k, 300, 3)):
+        a = rng.normal(size=shape).astype(np.float32)
+        want = np.asarray(jnp.mean(jnp.asarray(a), axis=0))
+        np.testing.assert_array_equal(
+            t_tree._mean0(torch.from_numpy(a)).numpy(), want)
+    if k in (3, 5):
+        divided = (torch.from_numpy(a).sum(0) / k).numpy()
+        assert not np.array_equal(divided, want)
+
+
 def test_multiclass_fused_and_kernel_refusal():
     arrays, meta, x = _model(40, k=3, loss="softmax3")
     jp, tp = jax_packed(arrays, meta), torch_packed(arrays, meta)
@@ -191,10 +209,7 @@ def test_multiclass_fused_and_kernel_refusal():
         got = t_boosting.predict(tp, tx, impl=impl).numpy()
         assert got.shape == (300, 3)
         want = np.asarray(j_boosting.predict(jp, jx, impl=impl))
-        if impl == "packed":
-            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-        else:
-            np.testing.assert_array_equal(got, want, err_msg=impl)
+        np.testing.assert_array_equal(got, want, err_msg=impl)
     proba = t_boosting.predict_proba(tp, tx, impl="fused")
     np.testing.assert_allclose(proba.sum(-1).numpy(), 1.0, atol=1e-6)
     for impl in ("fused-cuda", "cuda"):
@@ -224,7 +239,9 @@ def test_wrapper_checks_inputs():
 @pytest.mark.cuda
 def test_kernels_equal_plain_on_card(cuda_device):
     """chip_smoke's kernel phase: both kernels bit-equal to their plain
-    versions at depth 3 and 5 and n in {257, 8192, 262144}."""
+    versions, and two launches bit-identical, at every case of
+    ``chip_smoke.traversal_cases`` (depth 0-12, one tree to one past a
+    chunk, n from 1 to 262144, d from 1 to 4096)."""
     import chip_smoke
 
     err = chip_smoke.phase_kernels(cuda_device)

@@ -12,9 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import forest as j_forest
 from repro.core import tree as j_tree
 from repro.core.types import TreeConfig as JTreeConfig
 from repro_torch.core import backend as t_backend
+from repro_torch.core import forest as t_forest
 from repro_torch.core import histogram as t_hist
 from repro_torch.core import tree as t_tree
 from repro_torch.core.types import TreeConfig as TTreeConfig
@@ -92,6 +94,20 @@ def test_multiclass_round_equals_jax():
     assert_trees_equal(got_trees, want_trees)
     np.testing.assert_array_equal(got_assign.numpy(),
                                   np.asarray(want_assign))
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_build_forest_train_pred_equals_jax(k):
+    """``forest.build_forest``'s bagging-mean train prediction is
+    ``jnp.mean`` of the trees' outputs bit for bit (T = 3: ``1 / 3`` is
+    inexact, so a division would differ in the last ulp)."""
+    args = _round_inputs(14 + k, k=k)
+    cfg = dict(num_bins=B)
+    want_trees, want = j_forest.build_forest(*args, JTreeConfig(**cfg))
+    got_trees, got = t_forest.build_forest(
+        *(torch.from_numpy(a) for a in args), TTreeConfig(**cfg))
+    assert_trees_equal(got_trees, want_trees)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_per_tree_providers_and_build_tree():
