@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build and check the PyTorch/CUDA port of FedGBF on one NVIDIA card:
-training through the histogram kernel, then serving through the
-ensemble-traversal kernels.
+serving (f32 and int8/int16 quantized) through the ensemble-traversal
+kernels, then training (uniform and GOSS sampling, kill and resume)
+through the histogram kernel.
 
     python3 chip_smoke.py
 
@@ -28,12 +29,23 @@ package.  Phases, each of which raises on failure (exit code 1):
       Poisson(3) bins; two launches must be ``torch.equal``, and up to
       n = 21000 the kernel must equal the plain version run on the CPU.
       The sort kernel that every histogram launch runs first is held
-      against its plain version (a stable ``torch.sort``) on every case.
+      against its plain version (a stable ``torch.sort``) on every case;
+   b'. the round entry point on GOSS weights (0, 1 or the non-dyadic
+      amplification, at rho_id 0.1 and 0.3): 21000 x 23, B = 32, T = 5,
+      direct and child, K in {1, 3}, ``torch.equal`` to the plain version
+      on the card and the CPU, two launches equal.
 3. Serving main path: the committed JAX-trained Dynamic FedGBF checkpoint
    serves 1,048,576 requests through ``serve_stream`` (``impl="fused-
    cuda"``, batch 8192, one mid-stream hot reload), then 65,536 with
    ``impl="cuda"``; launch counts equal batches plus warm-up, and the first
    4,096 scores match the committed JAX scores within 1e-5.
+   b. Quantized serving: the port's ``quantize_ensemble`` with the
+      committed JAX uniforms gives the committed JAX int8 and int16 tables
+      exactly; each JAX-quantized checkpoint serves the same 1,048,576
+      requests through ``fused-cuda`` and 65,536 through ``cuda``, launches
+      counted; the first 4,096 margins equal the JAX margins bit for bit,
+      and every served row's margin is within ``margin_delta_bound`` of
+      the f32 model's.
 4. Training main path: ``train_fedgbf(dynamic_fedgbf_config(rounds=20),
    backend="local-cuda")`` on ``default_credit_card`` (21,000 x 23) with
    the committed JAX-drawn masks: exactly 60 histogram launches (and 60
@@ -44,13 +56,23 @@ package.  Phases, each of which raises on failure (exit code 1):
    trees and margins.  The model is saved, loaded and serves 65,536
    requests through ``fused-cuda``; its first 4,096 margins must equal the
    committed JAX margins bit for bit.
+   b. GOSS: the same run with ``sampling="goss"`` and native draws from
+      seed 0: 60 histogram launches, trees, leaves and margins
+      ``torch.equal`` to ``backend="local"`` on the card, the GOSS
+      invariants on every round, the round wall beside 4's.
+   c. Kill and resume: 4's run stopped after round 8, its train state
+      saved and loaded, rounds 9-20 trained from the stored margins: the
+      packed ensemble and final margins equal 4's.
 5. The other two entry points' paths: round 1 rebuilt with per-tree
    providers (the single-tree entry point) and with the staged provider
    (``histogram_dispatch("cuda")``); both must build the ``local-cuda``
    round's trees.
-6. The launchers: ``python -m repro_torch.launch.train_fedgbf --rounds 3
-   --backend local-cuda`` writes a checkpoint that ``serve_fedgbf
-   --checkpoint`` serves.
+6. The launchers (``python -m repro_torch.launch.*``, four chains side
+   by side): ``train_fedgbf`` killed after round 3 of 6 and resumed
+   (``--checkpoint-every 2``) ends in the uninterrupted run's train state;
+   ``--sampling goss`` trains; ``serve_fedgbf --save`` hands a model to
+   ``serve_fedgbf --checkpoint ... --quantize 8 --metrics-port 0``, which
+   scrapes its own endpoint.
 7. Timing at the main path's shapes (CUDA events) beside the plain
    versions, the bounds and, for the histogram, one ``index_add_`` (for
    the sort, one stable ``torch.sort``); the traversal kernels also at
@@ -69,6 +91,7 @@ is not beside this file.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -87,6 +110,12 @@ GOLDEN = ROOT / "src" / "repro_torch" / "testdata" / \
     "dynamic_fedgbf_r20_scores.npz"
 TRAIN_ORACLE = ROOT / "src" / "repro_torch" / "testdata" / \
     "dynamic_fedgbf_r20_train.npz"
+#: the JAX package's int8/int16 copies of CHECKPOINT, and its uniforms,
+#: margins and bounds for them (``tests/test_torch_quantized.py``)
+QUANTIZED = {bits: ROOT / "src" / "repro_torch" / "testdata" /
+             f"dynamic_fedgbf_r20_q{bits}" for bits in (8, 16)}
+QUANTIZED_DATA = ROOT / "src" / "repro_torch" / "testdata" / \
+    "dynamic_fedgbf_r20_quantized.npz"
 SOURCE = "src/repro_torch/kernels/ensemble_predict/csrc/ensemble_predict.cu"
 HIST_SOURCE = "src/repro_torch/kernels/histogram/csrc/histogram.cu"
 REPLACES = {
@@ -120,6 +149,10 @@ BATCH = 8192
 RELOAD_AT_BATCH = 64
 #: the traversal kernels' timed batch sizes, the serving batch first
 TIMED_ROWS = (BATCH, 1 << 15, 1 << 16, 3 << 15, 1 << 17, 3 << 16, 1 << 18)
+#: GOSS budgets of phase 2b': the reference schedule's rho_id ends
+GOSS_RHO = (0.1, 0.3)
+#: the reference run is stopped after this round and resumed (phase 4c)
+RESUME_AT = 8
 
 
 def check(ok: bool, what: str) -> None:
@@ -450,7 +483,7 @@ def phase_main_path(device, card) -> dict:
         rng.integers(0, ds.x_test.shape[0], STREAM)]
     n_gold = golden["proba_fused"].shape[0]
 
-    launches = {}
+    launches, stream = {}, {}
     runs = (("fused-cuda", requests, {RELOAD_AT_BATCH: str(CHECKPOINT)}),
             ("cuda", requests[:STREAM_BINNED], None))
     for impl, reqs, swap_plan in runs:
@@ -470,14 +503,102 @@ def phase_main_path(device, card) -> dict:
               f"JAX scores (max |diff| {diff})")
         if swap_plan:
             check(int(sm.reloads.value) == 1, "mid-stream reload swapped in")
-        q = sm.quantiles_ms()
+        stream[impl] = stream_line(sm)
         print(f"serve impl={impl} on {card}: {reqs.shape[0]} requests, "
               f"{int(sm.batches.value)} batches of {BATCH}, "
-              f"{sm.rows_per_s.value:,.0f} rows/s, batch latency "
-              f"p50={q[0.5]:.4f} ms p90={q[0.9]:.4f} ms "
-              f"p99={q[0.99]:.4f} ms, {n_launch} launches, "
+              f"{stream[impl]}, {n_launch} launches, "
               f"max |score - JAX| {diff:.3g}")
-    return {"packed": packed, "launches": launches, "requests": requests}
+    return {"packed": packed, "launches": launches, "requests": requests,
+            "stream": stream}
+
+
+def stream_line(sm) -> str:
+    q = sm.quantiles_ms()
+    return (f"{sm.rows_per_s.value:,.0f} rows/s, batch latency "
+            f"p50={q[0.5]:.4f} ms p90={q[0.9]:.4f} ms p99={q[0.99]:.4f} ms")
+
+
+def phase_quantized(device, card, main_path) -> dict:
+    """Phase 3b: quantized serving.  The port's ``quantize_ensemble`` of
+    the reference checkpoint, given the committed JAX uniforms, must give
+    the committed JAX int8 and int16 tables exactly.  Each JAX-quantized
+    checkpoint then serves the request stream: 1,048,576 requests through
+    ``fused-cuda`` and 65,536 through ``cuda`` (dequantized leaves in both
+    traversal kernels), launches counted; the first 4,096 margins of each
+    impl equal the committed JAX ``fused`` margins bit for bit, and every
+    score the stream served equals the activation of those margins (the
+    first 4,096) and of ``predict``'s margins (every row); over every
+    served row |margin_q - margin_f32| <= ``margin_delta_bound``.  Rows/s
+    and p50/p90 are printed beside the f32 stream's (phase 3)."""
+    import torch
+
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.core import boosting
+    from repro_torch.core import objective as objective_mod
+    from repro_torch.core.types import (
+        QUANTIZED_ARRAYS,
+        margin_delta_bound,
+        quantize_ensemble,
+    )
+
+    data = np.load(QUANTIZED_DATA)
+    f32, requests = main_path["packed"], main_path["requests"]
+    uniform = torch.from_numpy(data["uniform"]).to(device)
+    launches = {IMPL_KERNEL[impl][0]: 0 for impl in IMPL_KERNEL}
+    activation = objective_mod.get_objective(f32.loss).activation
+    for bits, path in QUANTIZED.items():
+        q = ckpt_io.load_ensemble(str(path), device=device)
+        check(q.bits == bits and q.total_trees == REF_TREES,
+              f"int{bits} checkpoint: {REF_TREES} trees")
+        mine = quantize_ensemble(f32, bits, uniform=uniform)
+        for f in QUANTIZED_ARRAYS:
+            check(torch.equal(getattr(mine, f), getattr(q, f)),
+                  f"int{bits} quantize_ensemble {f} == the JAX table")
+        bound = margin_delta_bound(q)
+        check(abs(bound - float(data[f"bound_q{bits}"]))
+              <= 1e-6 * float(data[f"bound_q{bits}"]),
+              f"int{bits} bound {bound!r} within rtol 1e-6 of JAX's")
+        gold = data[f"margin_q{bits}"]
+        for impl, reqs in (("fused-cuda", requests),
+                           ("cuda", requests[:STREAM_BINNED])):
+            kernel = IMPL_KERNEL[impl][0]
+            scores, sm, n_launch, expected = serve(q, reqs, impl, None)
+            check(n_launch == expected, f"int{bits} {impl}: {n_launch} "
+                  f"launches == {expected}")
+            check(scores.shape == (reqs.shape[0],)
+                  and bool(np.isfinite(scores).all()),
+                  f"int{bits} {impl}: finite scores")
+            launches[kernel] += n_launch
+            served = torch.from_numpy(scores).to(device)
+            want = activation(torch.from_numpy(gold).to(device))
+            check(torch.equal(served[:gold.shape[0]], want),
+                  f"int{bits} {impl}: first {gold.shape[0]} served scores "
+                  f"== the activation of the JAX margins (max |diff| "
+                  f"{float((served[:gold.shape[0]] - want).abs().max())})")
+            delta = 0.0
+            for lo in range(0, reqs.shape[0], 1 << 18):
+                x = torch.from_numpy(np.ascontiguousarray(
+                    reqs[lo:lo + (1 << 18)], np.float32)).to(device)
+                mq = boosting.predict(q, x, impl=impl)
+                if lo == 0:
+                    head = mq[:gold.shape[0]].cpu().numpy()
+                    check(np.array_equal(head, gold),
+                          f"int{bits} {impl}: first {gold.shape[0]} margins "
+                          f"== the JAX margins (max |diff| "
+                          f"{np.abs(head - gold).max()})")
+                check(torch.equal(served[lo:lo + x.shape[0]], activation(mq)),
+                      f"int{bits} {impl}: served scores of rows {lo}.. == "
+                      f"the activation of predict's margins")
+                mf = boosting.predict(f32, x, impl=impl)
+                delta = max(delta, float((mq - mf).abs().max()))
+            check(delta <= bound, f"int{bits} {impl}: max |margin_q - "
+                  f"margin_f32| {delta!r} <= bound {bound!r}")
+            print(f"serve int{bits} impl={impl} on {card}: {reqs.shape[0]} "
+                  f"requests, {stream_line(sm)} (f32: "
+                  f"{main_path['stream'][impl]}), {n_launch} launches; first "
+                  f"{gold.shape[0]} margins == JAX; max |margin_q - "
+                  f"margin_f32| {delta:.4g} <= bound {bound:.4g}")
+    return launches
 
 
 def hist_inputs(rng, n, d, num_bins, n_ids, n_trees, k, device, kind=""):
@@ -616,6 +737,56 @@ def phase_hist_kernels(device) -> dict:
         print(f"kernel vs plain: {what}: max |diff| {diff:.3g}, "
               f"deterministic{on_cpu}; sort equal, longest segment "
               f"{longest}")
+    return err
+
+
+def phase_goss_hist_kernels(device) -> float:
+    """Phase 2b': the round histogram on GOSS's weights, which are 0, 1 or
+    the amplification ``(n - n_top) / n_rand`` (not a power of two, so
+    ``g * w`` and ``h * w`` round): 21000 x 23, B = 32, T = 5, direct and
+    child, K = 1 and 3, at the budgets ``goss_counts`` gives for rho_id
+    0.1 and 0.3.  Equal to the plain version on the card and on the CPU
+    (``torch.equal``), two launches equal.  Returns the max |diff|."""
+    import torch
+
+    from repro_torch.core import forest
+
+    rng = np.random.default_rng(14)
+    gen = torch.Generator().manual_seed(14)
+    n, d, num_bins, n_trees = 21000, 23, 32, 5
+    err = 0.0
+    for rho in GOSS_RHO:
+        n_top, n_rand = forest.goss_counts(n, rho, 0.5)
+        amplify = float(np.float32(n - n_top) / np.float32(n_rand))
+        for k in (1, 3):
+            for child in (False, True):
+                nodes = 2 if child else 1
+                t = hist_inputs(rng, n, d, num_bins,
+                                2 * nodes if child else nodes, n_trees, k,
+                                device)
+                t["w"] = forest.goss_weights(
+                    t["g"], torch.rand((n_trees, n), generator=gen).to(
+                        device), n_top, n_rand).contiguous()
+                check(set(t["w"].unique().tolist()) <= {0.0, 1.0, amplify},
+                      "GOSS weights in {0, 1, amplify}")
+                kernel, plain, _, _ = _hist_call("round", t, nodes, num_bins,
+                                                 child)
+                (a, launched), (b, _) = kernel(), kernel()
+                torch.cuda.synchronize()
+                what = (f"histogram_round GOSS rho_id={rho} (n_top {n_top}, "
+                        f"n_rand {n_rand}, amplify {amplify!r}) T={n_trees} "
+                        f"K={k}{' child' if child else ''}")
+                check(launched, f"{what}: launched")
+                check(torch.equal(a, b), f"{what}: two launches equal")
+                want = plain(device)
+                diff = float((a - want).abs().max())
+                err = max(err, diff)
+                check(torch.equal(a, want), f"{what}: == plain (max |diff| "
+                      f"{diff})")
+                check(torch.equal(a.cpu(), plain("cpu")),
+                      f"{what}: == plain on the CPU")
+                print(f"kernel vs plain: {what}: equal on the card and the "
+                      f"CPU, deterministic")
     return err
 
 
@@ -784,7 +955,156 @@ def phase_train(device, card) -> dict:
           f"|diff| {served_diff:.3g} vs JAX, scores {score_diff:.3g}")
     return {"model": model, "masks": masks, "launches": launches,
             "x_train": ds.x_train, "y_train": ds.y_train,
-            "level_calls": timer.first_call}
+            "level_calls": timer.first_call, "history": history}
+
+
+def _walls_ms(history) -> str:
+    walls = np.array(history.wall_time_s) * 1e3
+    return (f"mean {walls[1:].mean():.2f} ms over rounds 2-{walls.size} "
+            f"(round 1 {walls[0]:.2f})")
+
+
+def phase_goss_train(device, card, uniform_history) -> dict:
+    """Phase 4b: GOSS training on the card.  ``train_fedgbf(
+    dynamic_fedgbf_config(rounds=20, sampling="goss"), backend="local-
+    cuda")`` on the full ``default_credit_card`` training set with native
+    draws from seed 0 (drawn on the CPU): exactly 60 round-histogram
+    launches; trees, leaves and final margins equal (``torch.equal``) to
+    the same draws run through ``backend="local"`` on the card; on every
+    round the GOSS invariants: the weight-1 rows are the ``n_top``
+    largest |g|, every weight is in {0, 1, amplify}, and at least ``n_top
+    + n_rand`` rows weigh.  The per-round wall is printed beside the
+    uniform run's."""
+    import torch
+
+    from repro_torch.core import backend as backend_mod
+    from repro_torch.core import boosting, dynamic, forest
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.histogram import ops
+
+    steps = []
+
+    class Recording(backend_mod.TreeBackend):
+        """``local-cuda``, keeping each round's g and GOSS weights."""
+
+        def build_forest_per_tree(self, binned, g, h, sample_mask, *a, **kw):
+            steps.append((g, sample_mask))
+            return super().build_forest_per_tree(binned, g, h, sample_mask,
+                                                 *a, **kw)
+
+    ds = synthetic.load("default_credit_card")
+    n, d = ds.x_train.shape
+    cfg = boosting.dynamic_fedgbf_config(rounds=REF_ROUNDS, sampling="goss")
+    draws = forest.draw_step_masks(cfg, n, d,
+                                   torch.Generator().manual_seed(0))
+    check(draws.uniform.device.type == "cpu", "GOSS draws made on the CPU")
+    local_cuda = backend_mod.get_backend("local-cuda")
+    recording = Recording(**{f.name: getattr(local_cuda, f.name)
+                             for f in dataclasses.fields(local_cuda)})
+    ops.reset_launches()
+    model, history = boosting.train_fedgbf(
+        ds.x_train, ds.y_train, cfg, draws, backend=recording, device=device)
+    torch.cuda.synchronize()
+    launches = {name: ops.kernel_launches(name) for name in ops.KERNELS}
+    check(launches["histogram_round"] == REF_HIST_LAUNCHES,
+          f"GOSS: {launches['histogram_round']} round-histogram launches == "
+          f"{REF_HIST_LAUNCHES}")
+    check(len(steps) == REF_ROUNDS, "one forest build a round")
+    for m, (g, w) in enumerate(steps, start=1):
+        n_top, n_rand = forest.goss_counts(
+            n, dynamic.rho_id_schedule(cfg, m), cfg.goss_top_share)
+        amplify = float(np.float32(n - n_top) / np.float32(n_rand))
+        check(amplify != 1.0, "amplification tells the sets apart")
+        mag = g.abs()
+        for t in range(w.shape[0]):
+            top = w[t] == 1
+            check(int(top.sum()) == n_top, f"round {m}: {n_top} top rows")
+            check(float(mag[top].min()) >= float(mag[~top].max()),
+                  f"round {m}: the top rows hold the largest |g|")
+            check(set(w[t].unique().tolist()) <= {0.0, 1.0, amplify},
+                  f"round {m}: weights in {{0, 1, {amplify!r}}}")
+            check(int((w[t] != 0).sum()) >= n_top + n_rand,
+                  f"round {m}: at least n_top + n_rand rows weigh")
+    local, local_history = boosting.train_fedgbf(
+        ds.x_train, ds.y_train, cfg, draws, backend="local", device=device)
+    check(_same_trees(model, local),
+          "GOSS local-cuda trees and leaves == local on the card")
+    check(np.array_equal(history.final_margin, local_history.final_margin),
+          "GOSS final margins == local on the card")
+    print(f"train GOSS local-cuda on {card}: {REF_ROUNDS} rounds, "
+          f"{sum(f.feature.shape[0] for f in model.forests)} trees, "
+          f"launches {launches}; GOSS invariants hold on all "
+          f"{REF_ROUNDS} rounds; trees, leaves and final margins == local "
+          f"on the card; final train {history.train[-1]}")
+    print(f"train wall per round: GOSS {_walls_ms(history)}; uniform "
+          f"{_walls_ms(uniform_history)}")
+    print("train GOSS wall per round (ms): " + " ".join(
+        f"{1e3 * w:.2f}" for w in history.wall_time_s))
+    return {"launches": launches}
+
+
+def phase_resume(device, card, train) -> dict:
+    """Phase 4c: kill and resume the reference run.  Rounds [0, 8) with
+    the committed JAX masks, ``save_train_state``, ``load_train_state``,
+    then [8, 20) from the stored margins: the stitched ``PackedEnsemble``
+    equal, array for array, to the uninterrupted run's (phase 4), so the
+    committed checkpoint's 78 trees; final margins bit-equal; 60
+    round-histogram launches in all."""
+    import torch
+
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.core import boosting
+    from repro_torch.core.types import (
+        PACKED_ARRAYS,
+        EnsembleModel,
+        pack_ensemble,
+        unpack_ensemble,
+    )
+    from repro_torch.kernels.histogram import ops
+
+    cfg = boosting.dynamic_fedgbf_config(rounds=REF_ROUNDS)
+    kw = dict(backend="local-cuda", device=device)
+    ops.reset_launches()
+    first, h1 = boosting.train_fedgbf(train["x_train"], train["y_train"],
+                                      cfg, train["masks"],
+                                      stop_round=RESUME_AT, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state")
+        ckpt_io.save_train_state(path, first, h1.final_margin, RESUME_AT,
+                                 "chip_smoke reference run")
+        state = ckpt_io.load_train_state(path, device=device)
+    check(state["completed_rounds"] == RESUME_AT, "state round count")
+    rest, h2 = boosting.train_fedgbf(train["x_train"], train["y_train"], cfg,
+                                     train["masks"], start_round=RESUME_AT,
+                                     init_margin=state["margin"], **kw)
+    torch.cuda.synchronize()
+    launches = {name: ops.kernel_launches(name) for name in ops.KERNELS}
+    check(launches["histogram_round"] == REF_HIST_LAUNCHES,
+          f"resume: {launches['histogram_round']} round-histogram launches "
+          f"== {REF_HIST_LAUNCHES}")
+    prefix = unpack_ensemble(state["packed"])
+    stitched = pack_ensemble(EnsembleModel(
+        prefix.forests + rest.forests, rest.learning_rate, rest.base_score,
+        rest.bin_edges, rest.loss, rest.max_depth))
+    whole = pack_ensemble(train["model"])
+    check(stitched.round_offsets == whole.round_offsets
+          and stitched.total_trees == REF_TREES, "78 trees, same rounds")
+    for f in PACKED_ARRAYS:
+        check(torch.equal(getattr(stitched, f), getattr(whole, f)),
+              f"resumed {f} == the uninterrupted run's")
+    ckpt = ckpt_io.load_ensemble(str(CHECKPOINT), device=device)
+    check(torch.equal(stitched.feature, ckpt.feature)
+          and torch.equal(stitched.threshold, ckpt.threshold),
+          "resumed trees == the committed checkpoint's")
+    check(np.array_equal(h2.final_margin, train["history"].final_margin),
+          "resumed final margins == the uninterrupted run's, bit for bit")
+    print(f"resume on {card}: rounds [0, {RESUME_AT}) + train state + "
+          f"[{RESUME_AT}, {REF_ROUNDS}): packed ensemble == the "
+          f"uninterrupted run's (all six arrays), {REF_TREES} trees == "
+          f"checkpoint, final margins bit-equal; launches {launches}")
+    return {"launches": launches}
+
+
 
 
 def round1_inputs(train, device):
@@ -845,25 +1165,82 @@ def phase_other_paths(device, train) -> dict:
     return launches
 
 
-def phase_launchers() -> None:
-    """``train_fedgbf --rounds 3 --backend local-cuda`` writes a checkpoint
-    that ``serve_fedgbf --checkpoint`` serves (both on cuda by default)."""
+def _launch(argv: list, want: str, env: dict) -> str:
+    """Run one launcher (``python -m ...``) to its end; it must exit 0 and
+    print ``want``.  Returns its output."""
+    proc = subprocess.run([sys.executable, "-m", *argv], env=env,
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"{' '.join(argv)} exits 0 (exit "
+          f"{proc.returncode}: {proc.stderr[-2000:]})")
+    check(want in proc.stdout, f"{' '.join(argv)} prints {want!r}")
+    return proc.stdout
+
+
+def phase_launchers(device) -> None:
+    """Phase 6, the launchers, in four chains run side by side (both
+    launchers default to cuda):
+
+    * ``train_fedgbf --rounds 6 --checkpoint P --checkpoint-every 2
+      --stop-after-round 3``, then the same with ``--resume``;
+    * ``train_fedgbf --rounds 6 --checkpoint Q``, uninterrupted: P's
+      packed model and margins must equal Q's;
+    * ``train_fedgbf --rounds 3 --sampling goss``;
+    * ``serve_fedgbf --rounds 3 --save S``, then ``serve_fedgbf
+      --checkpoint S --quantize 8 --metrics-port 0``, which prints its
+      self-scrape line."""
+    import torch
+
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.core.types import PACKED_ARRAYS
+
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    train, serve_cli = ("repro_torch.launch.train_fedgbf",
+                        "repro_torch.launch.serve_fedgbf")
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = os.path.join(tmp, "cli")
-        for argv in (["repro_torch.launch.train_fedgbf", "--rounds", "3",
-                      "--backend", "local-cuda", "--checkpoint", ckpt],
-                     ["repro_torch.launch.serve_fedgbf", "--checkpoint",
-                      ckpt, "--requests", "20000"]):
-            proc = subprocess.run([sys.executable, "-m", *argv], env=env,
-                                  capture_output=True, text=True,
-                                  timeout=600)
-            tail = (proc.stdout + proc.stderr).strip().splitlines()[-3:]
-            check(proc.returncode == 0, f"{argv[0]} exits 0 (exit "
-                  f"{proc.returncode}: {proc.stderr[-2000:]})")
-            print(f"launcher {argv[0]}: exit 0")
-            for line in tail:
-                print(f"  {line}")
+        part, whole, saved = (os.path.join(tmp, f)
+                              for f in ("part", "whole", "saved"))
+        chunked = [train, "--rounds", "6", "--checkpoint", part,
+                   "--checkpoint-every", "2"]
+        chains = {
+            "kill and resume": [
+                (chunked + ["--stop-after-round", "3"],
+                 "stopped after round 3"),
+                (chunked + ["--resume"], "resume: 3 completed rounds")],
+            "uninterrupted": [([train, "--rounds", "6", "--checkpoint",
+                                whole], "checkpoint: 6 rounds")],
+            "goss": [([train, "--rounds", "3", "--sampling", "goss"],
+                      "sampling=goss")],
+            "quantized serving": [
+                ([serve_cli, "--rounds", "3", "--save", saved, "--requests",
+                  "20000"], "saved packed checkpoint"),
+                ([serve_cli, "--checkpoint", saved, "--quantize", "8",
+                  "--metrics-port", "0", "--requests", "20000"],
+                 "self-scrape http://127.0.0.1:")],
+        }
+
+        def run(chain):
+            return [_launch(argv, want, env) for argv, want in chain]
+
+        with ThreadPoolExecutor(max_workers=len(chains)) as pool:
+            outs = dict(zip(chains, pool.map(run, chains.values())))
+        for name, chain in chains.items():
+            for (argv, want), out in zip(chain, outs[name]):
+                label = " ".join(os.path.basename(a) for a in argv)
+                print(f"launcher {label} ({name}): exit 0")
+                for line in out.strip().splitlines()[-3:]:
+                    print(f"  {line}")
+        resumed = ckpt_io.load_train_state(part, device=device)
+        straight = ckpt_io.load_train_state(whole, device=device)
+    check(resumed["completed_rounds"] == straight["completed_rounds"] == 6,
+          "both states hold 6 rounds")
+    for f in PACKED_ARRAYS:
+        check(torch.equal(getattr(resumed["packed"], f),
+                          getattr(straight["packed"], f)),
+              f"killed-and-resumed {f} == the uninterrupted run's")
+    check(np.array_equal(resumed["margin"], straight["margin"]),
+          "killed-and-resumed margins == the uninterrupted run's")
+    print("launchers: the killed and resumed run's train state == the "
+          "uninterrupted run's (packed model and margins)")
 
 
 def hist_bound(nbytes: float, ops_count: float) -> tuple[float, str]:
@@ -1138,25 +1515,36 @@ def main() -> int:
     phase_build()
     err = phase_kernels(device)
     err.update(phase_hist_kernels(device))
+    err["histogram_round"] = max(err["histogram_round"],
+                                 phase_goss_hist_kernels(device))
     main_path = phase_main_path(device, card)
-    train = phase_train(device, card)
     launches = dict(main_path["launches"])
-    launches["histogram_round"] = train["launches"]["histogram_round"]
-    launches["histogram_sort"] = train["launches"]["histogram_sort"]
+    for kernel, count in phase_quantized(device, card, main_path).items():
+        launches[kernel] += count
+    train = phase_train(device, card)
+    # every training run's round histograms (each sorting first): the
+    # uniform reference run, GOSS, and the reference run killed and resumed
+    runs = (train["launches"],
+            phase_goss_train(device, card, train["history"])["launches"],
+            phase_resume(device, card, train)["launches"])
+    for kernel in ("histogram_round", "histogram_sort"):
+        launches[kernel] = sum(run[kernel] for run in runs)
     launches.update(phase_other_paths(device, train))
-    phase_launchers()
+    phase_launchers(device)
     timing = phase_timing(main_path["packed"], main_path["requests"])
     timing.update(phase_hist_timing(device, train))
     phase_profile(main_path["packed"], main_path["requests"])
     phase_train_profile(device)
     paths = {
-        "ensemble_predict_raw": "serve fused-cuda, 1,048,576 requests",
-        "ensemble_predict_binned": "serve cuda, 65,536 requests",
-        "histogram_round": "train_fedgbf local-cuda, 20 rounds",
+        "ensemble_predict_raw": "serve fused-cuda, 1,048,576 requests each "
+                                "of the f32, int8 and int16 checkpoints",
+        "ensemble_predict_binned": "serve cuda, 65,536 requests each of "
+                                   "the f32, int8 and int16 checkpoints",
+        "histogram_round": "train_fedgbf local-cuda, 20 rounds: uniform, "
+                           "GOSS, and uniform killed after 8 and resumed",
         "histogram_tree": "round 1, per-tree providers",
         "histogram_staged": "round 1, histogram_dispatch('cuda')",
-        "histogram_sort": "train_fedgbf local-cuda, 20 rounds (the first "
-                          "step of every histogram_round launch)",
+        "histogram_sort": "the first step of every histogram_round launch",
     }
     shapes = {
         "ensemble_predict_raw": f"{BATCH}x23, 78 trees, depth 3",

@@ -9,6 +9,10 @@
   reproduce, so a run that must build the JAX package's trees takes its
   masks: (S, n) sample and (S, d) feature masks, one row per scheduled
   tree build in build order.
+* ``goss_draws_from_numpy``: GOSS's draws, the (S, n) uniforms and (S, d)
+  feature masks the JAX package draws from each build's key.
+* ``quantized_from_numpy``: a ``QuantizedEnsemble``, as the checkpoint
+  loader reads one.
 """
 
 from __future__ import annotations
@@ -16,8 +20,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.forest import StepMasks
-from repro_torch.core.types import PACKED_ARRAYS, PACKED_META, PackedEnsemble
+from repro_torch.core.forest import GossDraws, StepMasks
+from repro_torch.core.types import (
+    PACKED_ARRAYS,
+    PACKED_META,
+    QUANTIZED_ARRAYS,
+    QUANTIZED_META,
+    PackedEnsemble,
+    QuantizedEnsemble,
+)
 from repro_torch.device import resolve
 
 
@@ -61,3 +72,41 @@ def masks_from_numpy(sample: np.ndarray, feature: np.ndarray, device=None,
     return StepMasks(
         torch.tensor(sample, dtype=torch.float32, device=dev),
         torch.tensor(np.asarray(feature, bool), device=dev))
+
+
+def goss_draws_from_numpy(uniform: np.ndarray, feature: np.ndarray,
+                          device=None) -> GossDraws:
+    """``GossDraws`` on ``device`` (default ``cuda``) from (S, n) float32
+    uniforms and (S, d) feature masks."""
+    dev = resolve(device)
+    return GossDraws(
+        torch.tensor(np.asarray(uniform, np.float32), device=dev),
+        torch.tensor(np.asarray(feature, bool), device=dev))
+
+
+def quantized_from_numpy(arrays: dict[str, np.ndarray], meta: dict,
+                         device=None) -> QuantizedEnsemble:
+    """A ``QuantizedEnsemble`` on ``device`` (default ``cuda``) from the
+    arrays named in ``types.QUANTIZED_ARRAYS`` and the metadata named in
+    ``types.QUANTIZED_META``."""
+    dev = resolve(device)
+    tensors = {f: torch.from_numpy(np.ascontiguousarray(arrays[f])).to(dev)
+               for f in QUANTIZED_ARRAYS}
+    return QuantizedEnsemble(
+        **tensors,
+        bits=int(meta["bits"]),
+        round_offsets=tuple(int(o) for o in meta["round_offsets"]),
+        learning_rate=float(meta["learning_rate"]),
+        base_score=float(meta["base_score"]),
+        loss=str(meta["loss"]),
+        max_depth=int(meta["max_depth"]),
+    )
+
+
+def quantized_to_numpy(q: QuantizedEnsemble) -> tuple[dict, dict]:
+    """Inverse of ``quantized_from_numpy``: (arrays, metadata)."""
+    arrays = {f: getattr(q, f).detach().cpu().numpy()
+              for f in QUANTIZED_ARRAYS}
+    meta = {f: getattr(q, f) for f in QUANTIZED_META}
+    meta["round_offsets"] = list(meta["round_offsets"])
+    return arrays, meta

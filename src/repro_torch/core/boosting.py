@@ -7,7 +7,11 @@ tree builds are taken (or drawn) up front, the rounds run in the segments
 of ``_plan_segments`` (constant forest width, shared-root crossover), the
 shared-root buffer width comes from ``_root_delta_rows``/``_delta_bucket``,
 metrics are evaluated on the rounds ``eval_every`` and the final round
-select, and the history carries the exact final margins.
+select, and the history carries the exact final margins.  GOSS forms each
+round's weight masks from that round's gradients and its draws
+(``forest.goss_weights``); ``start_round``/``stop_round``/``init_margin``
+train a window of the full schedule, so a run stopped and resumed from a
+train-state checkpoint stitches to the uninterrupted run's ensemble.
 
 The margin update reproduces the reference's arithmetic: XLA's CPU backend
 folds ``y_hat + lr * mean(per_tree)`` into ``fma(sum(per_tree), lr * (1 /
@@ -17,7 +21,8 @@ gradients and trees of the next round — equal the JAX package's bit for
 bit on the CPU and on the card.
 
 Prediction: ``predict``, ``predict_loop`` and ``predict_proba``
-(``boosting.py:897-991``).
+(``boosting.py:897-991``), for a ``PackedEnsemble`` or a
+``QuantizedEnsemble``.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ from repro_torch.core.types import (
     EnsembleModel,
     FedGBFConfig,
     PackedEnsemble,
+    QuantizedEnsemble,
+    dequantize_ensemble,
     pack_ensemble,
     unpack_ensemble,
 )
@@ -125,11 +132,15 @@ def _keep_counts(cfg: FedGBFConfig, n: int) -> np.ndarray:
         np.int32)
 
 
-def _plan_segments(cfg: FedGBFConfig, n: int) -> list:
+def _plan_segments(cfg: FedGBFConfig, n: int, start_round: int = 0,
+                   stop_round: Optional[int] = None) -> list:
     """The segment plan: [(width, first_round, n_rounds, root_delta_rows),
     ...].  Segments split at width changes and at the shared-root
-    crossover (rho_id >= 0.5), and an eligible segment's buffer is the
-    bucketed largest masked-out count of its rounds."""
+    crossover (rho_id >= 0.5; never under GOSS), and an eligible segment's
+    buffer is the bucketed largest masked-out count of its rounds.
+    ``start_round``/``stop_round`` clip the FULL plan to the 0-based round
+    window [start, stop): a clipped segment keeps the uninterrupted run's
+    buffer width."""
     sched, _ = dynamic.flat_schedule(cfg)
     n_keep_round = _keep_counts(cfg, n)
     use_shared_root = cfg.tree.shared_root and cfg.sampling != "goss"
@@ -144,7 +155,23 @@ def _plan_segments(cfg: FedGBFConfig, n: int) -> list:
             seg_delta = int(n - n_keep_round[first:first + n_rounds].min())
             rdr = _delta_bucket(max(1, seg_delta), n)
         plan.append((width, first, n_rounds, rdr))
+    start = int(start_round)
+    stop = cfg.rounds if stop_round is None else int(stop_round)
+    if start > 0 or stop < cfg.rounds:
+        clipped = []
+        for width, first, n_rounds, rdr in plan:
+            a, b = max(first, start), min(first + n_rounds, stop)
+            if b > a:
+                clipped.append((width, a, b - a, rdr))
+        plan = clipped
     return plan
+
+
+def _goss_counts(cfg: FedGBFConfig, n: int) -> list:
+    """Per-round GOSS (n_top, n_rand), by the JAX engines' host arithmetic."""
+    return [forest_mod.goss_counts(n, dynamic.rho_id_schedule(cfg, m),
+                                   cfg.goss_top_share)
+            for m in range(1, cfg.rounds + 1)]
 
 
 def _f32(v: float) -> float:
@@ -178,7 +205,7 @@ def train_fedgbf(
     x,
     y,
     cfg: FedGBFConfig,
-    masks: Optional[forest_mod.StepMasks] = None,
+    masks: Union[forest_mod.StepMasks, forest_mod.GossDraws, None] = None,
     *,
     x_valid=None,
     y_valid=None,
@@ -190,6 +217,8 @@ def train_fedgbf(
     round_feature_mask=None,
     start_round: int = 0,
     stop_round: Optional[int] = None,
+    init_margin=None,
+    init_margin_valid=None,
 ) -> tuple[EnsembleModel, TrainHistory]:
     """Train (Dynamic) FedGBF; min == max on both schedules is static
     FedGBF.
@@ -199,33 +228,49 @@ def train_fedgbf(
       cfg: the training configuration.
       masks: every scheduled build's masks, (S, n) and (S, d), in build
         order — e.g. the JAX package's draws through
-        ``convert.masks_from_numpy``.  None draws them natively with
-        ``forest.draw_step_masks`` from seed 0.
+        ``convert.masks_from_numpy``; under ``sampling="goss"`` a
+        ``forest.GossDraws`` instead (``convert.goss_draws_from_numpy``).
+        None draws them natively with ``forest.draw_step_masks`` from seed
+        0.  Always the FULL schedule's, also for a window.
       backend: a registry name (``"local"``, ``"local-cuda"``) or a
         ``TreeBackend``; None = ``"local"``.
       eval_every: evaluate metrics every k rounds (and at the last).
       tracer: an ``obs.trace.Tracer``; None uses the process-global one.
       device: where to train; None = ``cuda`` (``device.resolve``).
-      round_feature_mask, start_round, stop_round: the JAX package's
-        federation window; not ported yet, so any other value than the
-        default raises ``NotImplementedError``.
+      round_feature_mask: the federation's party-dropout mask; not ported
+        yet, so anything but None raises ``NotImplementedError``.
+      start_round, stop_round: train only the 0-based round window [start,
+        stop) of the full schedule (masks, keep counts, segment plan and
+        eval gating all follow the full run), so chunks stitch to the
+        uninterrupted run's ensemble byte for byte.
+      init_margin, init_margin_valid: the margins to resume from (the
+        previous chunk's ``history.final_margin``); given exactly when
+        ``start_round > 0``.
     Returns:
-      (EnsembleModel, TrainHistory).
+      (EnsembleModel of the window's rounds, TrainHistory).
     """
-    if (round_feature_mask is not None or start_round != 0
-            or stop_round not in (None, cfg.rounds)):
+    if cfg.sampling not in ("uniform", "goss"):
+        raise ValueError(
+            f"unknown sampling {cfg.sampling!r}; options: 'uniform', 'goss'")
+    stop = cfg.rounds if stop_round is None else int(stop_round)
+    start = int(start_round)
+    if not 0 <= start < stop <= cfg.rounds:
+        raise ValueError(f"round window [{start}, {stop}) invalid for "
+                         f"cfg.rounds={cfg.rounds}")
+    if (init_margin is None) != (start == 0):
+        raise ValueError(
+            "init_margin must be given exactly when start_round > 0 (it is "
+            "the previous chunk's final_margin)")
+    if round_feature_mask is not None:
         raise NotImplementedError(
-            "round_feature_mask and the start/stop round window come with "
-            "the federation slice of the port")
-    if cfg.sampling != "uniform":
-        raise NotImplementedError(
-            f"sampling={cfg.sampling!r} is not ported (GOSS draws its masks "
-            "inside each round); use 'uniform'")
+            "round_feature_mask (party dropout) comes with the federation "
+            "slice of the port")
     dev = resolve(device)
     if tracer is None:
         tracer = trace_mod.global_tracer()
     bk = backend_mod.resolve_backend(backend)
     obj = objective_mod.get_objective(cfg.loss)
+    use_goss = cfg.sampling == "goss"
     t_call = time.perf_counter()
 
     x = _as_tensor(x, torch.float32, dev)
@@ -244,28 +289,37 @@ def train_fedgbf(
     if masks is None:
         masks = forest_mod.draw_step_masks(cfg, n, d,
                                            torch.Generator().manual_seed(0))
-    if (tuple(masks.sample.shape) != (n_steps, n)
+    want = forest_mod.GossDraws if use_goss else forest_mod.StepMasks
+    if not isinstance(masks, want):
+        raise TypeError(f"sampling={cfg.sampling!r} takes "
+                        f"{want.__name__}, got {type(masks).__name__}")
+    if (tuple(masks[0].shape) != (n_steps, n)
             or tuple(masks.feature.shape) != (n_steps, d)):
         raise ValueError(
             f"masks: expected ({n_steps}, {n}) sample and ({n_steps}, {d}) "
             f"feature masks for {n_steps} scheduled builds, got "
-            f"{tuple(masks.sample.shape)} and {tuple(masks.feature.shape)}")
-    smask_all = masks.sample.to(device=dev, dtype=torch.float32)
+            f"{tuple(masks[0].shape)} and {tuple(masks.feature.shape)}")
+    smask_all = masks[0].to(device=dev, dtype=torch.float32)
     fmask_all = masks.feature.to(device=dev, dtype=torch.bool)
+    goss_round = _goss_counts(cfg, n) if use_goss else None
 
     lr = cfg.learning_rate
     rounds_idx = np.arange(1, cfg.rounds + 1)
     do_eval = (rounds_idx % eval_every == 0) | (rounds_idx == cfg.rounds)
     offsets = np.concatenate([[0], np.cumsum(sched.n_trees)])
-    y_hat = obj.init_raw(n, cfg.base_score, device=dev)
-    y_hat_valid = (obj.init_raw(binned_valid.shape[0], cfg.base_score,
-                                device=dev)
-                   if binned_valid is not None else None)
+    y_hat = (obj.init_raw(n, cfg.base_score, device=dev) if init_margin is None
+             else _as_tensor(init_margin, torch.float32, dev))
+    y_hat_valid = None
+    if binned_valid is not None:
+        y_hat_valid = (obj.init_raw(binned_valid.shape[0], cfg.base_score,
+                                    device=dev)
+                       if init_margin_valid is None
+                       else _as_tensor(init_margin_valid, torch.float32, dev))
 
-    history = TrainHistory()
+    history = TrainHistory(start_round=start)
     forests, train_vecs, valid_vecs = [], [], []
     _synchronize(dev)
-    for width, first, n_rounds, rdr in _plan_segments(cfg, n):
+    for width, first, n_rounds, rdr in _plan_segments(cfg, n, start, stop):
         t_seg = time.perf_counter()
         for m in range(first, first + n_rounds):
             t0 = time.perf_counter()
@@ -275,8 +329,11 @@ def train_fedgbf(
                                    "rho_id": round(float(sched.rho_id[m]),
                                                    6)}):
                 g, h = obj.grad_hess(y32, y_hat)
+                smask = smask_all[s:e]
+                if use_goss:
+                    smask = forest_mod.goss_weights(g, smask, *goss_round[m])
                 trees, per_tree = bk.build_forest_per_tree(
-                    binned, g, h, smask_all[s:e], fmask_all[s:e], cfg.tree,
+                    binned, g, h, smask, fmask_all[s:e], cfg.tree,
                     root_delta_rows=rdr)
                 y_hat = _boost(y_hat, per_tree, lr)
                 if do_eval[m]:
@@ -299,21 +356,24 @@ def train_fedgbf(
         })
 
     keys = obj.metric_keys
-    tr_np = torch.stack(train_vecs).cpu().numpy()  # the last round evals
+    tr_np = (torch.stack(train_vecs).cpu().numpy() if train_vecs
+             else None)
     va_np = torch.stack(valid_vecs).cpu().numpy() if valid_vecs else None
-    history.n_trees = [int(v) for v in sched.n_trees]
+    history.n_trees = [int(v) for v in sched.n_trees[start:stop]]
     history.rho_id = [dynamic.rho_id_schedule(cfg, m)
-                      for m in range(1, cfg.rounds + 1)]
-    for i, m in enumerate(np.nonzero(do_eval)[0]):
-        history.rounds.append(int(m) + 1)
+                      for m in range(start + 1, stop + 1)]
+    eval_rounds = [int(m) for m in np.nonzero(do_eval)[0]
+                   if start <= m < stop]
+    for i, m in enumerate(eval_rounds):
+        history.rounds.append(m + 1)
         tr = dict(zip(keys, (float(v) for v in tr_np[i])))
         history.train.append(tr)
         if va_np is not None:
             history.valid.append(dict(zip(keys, (float(v) for v in va_np[i]))))
         if verbose:
             msg = ", ".join(f"{k}={v:.4f}" for k, v in tr.items())
-            print(f"[round {m + 1:3d}] trees={history.n_trees[m]} "
-                  f"rho_id={history.rho_id[m]:.2f} {msg}")
+            print(f"[round {m + 1:3d}] trees={history.n_trees[m - start]} "
+                  f"rho_id={history.rho_id[m - start]:.2f} {msg}")
     history.final_margin = y_hat.cpu().numpy()
     if y_hat_valid is not None:
         history.final_margin_valid = y_hat_valid.cpu().numpy()
@@ -360,8 +420,8 @@ def federated_forest_config(n_trees: int = 20, rho_id: float = 0.6,
 IMPLS = ("fused", "fused-cuda", "packed", "weighted", "cuda", "loop")
 
 
-def predict(model: Union[EnsembleModel, PackedEnsemble], x: torch.Tensor,
-            impl: str = "packed") -> torch.Tensor:
+def predict(model: Union[EnsembleModel, PackedEnsemble, QuantizedEnsemble],
+            x: torch.Tensor, impl: str = "packed") -> torch.Tensor:
     """Raw margin F(x) = base + lr * sum_m mean_j T_mj(x) (Alg. 1 l.10).
 
     ``impl``:
@@ -372,18 +432,26 @@ def predict(model: Union[EnsembleModel, PackedEnsemble], x: torch.Tensor,
                         against value-space thresholds;
       ``"fused-cuda"``  the fused path as one raw-float kernel launch;
       ``"loop"``        the per-round loop over unpacked forests.
+
+    A ``QuantizedEnsemble`` serves on the fused impls through its
+    dequantized leaf table (``types.serving_tables``); the binned impls
+    and ``loop`` widen it first (``types.dequantize_ensemble``).
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown predict impl {impl!r}; options: {IMPLS}")
     x = x.to(torch.float32)
     if impl == "loop":
+        if isinstance(model, QuantizedEnsemble):
+            model = dequantize_ensemble(model)
         return predict_loop(model, x)
-    packed = model if isinstance(model, PackedEnsemble) else pack_ensemble(
-        model)
+    packed = (model if isinstance(model, (PackedEnsemble, QuantizedEnsemble))
+              else pack_ensemble(model))
     if impl == "fused":
         return tree_mod.predict_packed_fused(packed, x)
     if impl == "fused-cuda":
         return ops.predict_packed_fused_cuda(packed, x.contiguous())
+    if isinstance(packed, QuantizedEnsemble):
+        packed = dequantize_ensemble(packed)
     binned = binning.bin_data(x, packed.bin_edges)
     if impl == "packed":
         return tree_mod.predict_packed(packed, binned)

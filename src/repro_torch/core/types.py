@@ -12,8 +12,9 @@ All tree structures are *fixed-topology complete binary trees* of static depth
 
 Tensors replace the JAX arrays; everything else keeps its field names and
 defaults, so a model moves between the packages field by field
-(``repro_torch.convert``).  ``QuantizedEnsemble`` is not ported yet: its
-stochastic rounding draws ``jax.random`` bits.
+(``repro_torch.convert``).  ``QuantizedEnsemble``'s stochastic rounding
+takes its uniforms as an input (the JAX package draws ``jax.random`` bits,
+which torch cannot reproduce) or draws them from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -250,16 +251,141 @@ def float_thresholds(feature: torch.Tensor, threshold: torch.Tensor,
                        torch.full_like(vals, FLOAT_MAX)).to(torch.float32)
 
 
-def serving_tables(model: PackedEnsemble) -> tuple:
-    """The fused-serving node tables of a packed f32 ensemble:
-    ``(feature i32 (T, I), thr_value f32 (T, I), leaf f32 (T, L[, K]),
-    tree_scale f32 (T,))``, contiguous, on the model's device."""
-    if not isinstance(model, PackedEnsemble):
-        raise TypeError(
-            f"serving_tables takes a PackedEnsemble, got {type(model).__name__}"
-            " (QuantizedEnsemble is not ported yet)")
+#: Tensor fields of ``QuantizedEnsemble`` in the JAX package's
+#: ``tree_flatten`` order, and its static metadata.
+QUANTIZED_ARRAYS = ("feature", "threshold", "leaf_q", "leaf_scale",
+                    "tree_scale", "bin_edges")
+QUANTIZED_META = ("bits",) + PACKED_META
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizedEnsemble:
+    """int8/int16 serving variant of ``PackedEnsemble`` (DESIGN.md §14).
+
+    Structure stays lossless (``feature`` int16, ``threshold`` int8 when
+    B <= 126 else int16); the leaf table is stochastically rounded with one
+    ``leaf_scale`` per tree (per channel when K-wide); the gain table is
+    dropped.  Routing equals the f32 model's, so the margin error is at
+    most ``margin_delta_bound``.
+    """
+
+    feature: torch.Tensor      # (total_trees, num_internal) int16
+    threshold: torch.Tensor    # (total_trees, num_internal) int8/int16
+    leaf_q: torch.Tensor       # (total_trees, num_leaves[, K]) int8/int16
+    leaf_scale: torch.Tensor   # (total_trees,[ K]) float32 per-tree quantum
+    tree_scale: torch.Tensor   # (total_trees,) float32 = lr / n_trees(round)
+    bin_edges: torch.Tensor    # (d, num_bins - 1) float32 training edges
+    bits: int
+    round_offsets: tuple
+    learning_rate: float
+    base_score: float
+    loss: str
+    max_depth: int
+
+    @property
+    def rounds(self) -> int:
+        return len(self.round_offsets) - 1
+
+    @property
+    def total_trees(self) -> int:
+        return int(self.round_offsets[-1])
+
+    @property
+    def device(self) -> torch.device:
+        return self.feature.device
+
+    def to(self, device) -> "QuantizedEnsemble":
+        """A copy with every tensor on ``device``."""
+        return dataclasses.replace(self, **{
+            f: getattr(self, f).to(device) for f in QUANTIZED_ARRAYS})
+
+
+def quantize_ensemble(packed: PackedEnsemble, bits: int = 8,
+                      uniform: torch.Tensor | None = None,
+                      stochastic: bool = True,
+                      generator: torch.Generator | None = None
+                      ) -> QuantizedEnsemble:
+    """Quantize a packed ensemble for serving (int8/int16 tables).
+
+    The leaf table goes through ``federation.compress.quantize_stats`` as a
+    (T, L, K) block (K = 1 for a scalar table), one scale per tree and
+    channel.  ``uniform`` (that shape) is the stochastic rounding's noise,
+    e.g. the JAX package's ``jax.random.uniform(key, (T, L, K))``; None
+    draws it from ``generator`` (default: seed 0) on the CPU.  A narrowing
+    that loses a feature or threshold id raises.
+    """
+    from repro_torch.federation import compress
+
+    if bits not in (8, 16):
+        raise ValueError(f"bits must be 8 or 16, got {bits}")
+    num_bins = packed.bin_edges.shape[1] + 1
+    thr_dtype = torch.int8 if num_bins <= 126 else torch.int16
+    feature = packed.feature.to(torch.int16)
+    threshold = packed.threshold.to(thr_dtype)
+    if not bool((feature.to(torch.int32) == packed.feature).all()):
+        raise ValueError("feature ids do not fit int16")
+    if not bool((threshold.to(torch.int32) == packed.threshold).all()):
+        raise ValueError(f"bin thresholds do not fit {thr_dtype}")
+    lw = packed.leaf_weight
+    lw3 = lw[..., None] if lw.dim() == 2 else lw  # (T, L, K)
+    q, scale = compress.quantize_stats(lw3, bits, uniform,
+                                       stochastic=stochastic,
+                                       generator=generator)
+    if lw.dim() == 2:
+        q, scale = q[..., 0], scale[..., 0]      # (T, L), (T,)
+    return QuantizedEnsemble(
+        feature=feature, threshold=threshold, leaf_q=q, leaf_scale=scale,
+        tree_scale=packed.tree_scale, bin_edges=packed.bin_edges, bits=bits,
+        round_offsets=packed.round_offsets,
+        learning_rate=packed.learning_rate, base_score=packed.base_score,
+        loss=packed.loss, max_depth=packed.max_depth)
+
+
+def dequantize_leaf(q: QuantizedEnsemble) -> torch.Tensor:
+    """f32 leaf table: ``leaf_q * leaf_scale`` per tree (and channel)."""
+    if q.leaf_q.dim() == 2:
+        return q.leaf_q.to(torch.float32) * q.leaf_scale[:, None]
+    return q.leaf_q.to(torch.float32) * q.leaf_scale[:, None, :]
+
+
+def dequantize_ensemble(q: QuantizedEnsemble) -> PackedEnsemble:
+    """Widen a quantized ensemble back to the f32 packed layout; the gain
+    table comes back as zeros."""
+    return PackedEnsemble(
+        feature=q.feature.to(torch.int32),
+        threshold=q.threshold.to(torch.int32),
+        gain=torch.zeros(tuple(q.feature.shape), dtype=torch.float32,
+                         device=q.device),
+        leaf_weight=dequantize_leaf(q),
+        tree_scale=q.tree_scale, bin_edges=q.bin_edges,
+        round_offsets=q.round_offsets, learning_rate=q.learning_rate,
+        base_score=q.base_score, loss=q.loss, max_depth=q.max_depth)
+
+
+def margin_delta_bound(q: QuantizedEnsemble) -> float:
+    """Provable |quantized - f32| margin bound over any input: each leaf is
+    off by less than one quantum and a row reads one leaf a tree, so
+    ``sum_t tree_scale[t] * max_k leaf_scale[t, k]`` (a float32 sum)."""
+    per_tree = q.leaf_scale
+    if per_tree.dim() == 2:                     # K-channel: worst channel
+        per_tree = per_tree.amax(dim=-1)
+    return float((q.tree_scale * per_tree).sum())
+
+
+def serving_tables(model) -> tuple:
+    """The fused-serving node tables of a ``PackedEnsemble`` or a
+    ``QuantizedEnsemble`` (leaf table dequantized): ``(feature i32 (T, I),
+    thr_value f32 (T, I), leaf f32 (T, L[, K]), tree_scale f32 (T,))``,
+    contiguous, on the model's device."""
+    if isinstance(model, QuantizedEnsemble):
+        leaf = dequantize_leaf(model)
+    elif isinstance(model, PackedEnsemble):
+        leaf = model.leaf_weight
+    else:
+        raise TypeError("serving_tables takes a PackedEnsemble or a "
+                        f"QuantizedEnsemble, got {type(model).__name__}")
     feature = model.feature.to(torch.int32).contiguous()
     thr = float_thresholds(feature, model.threshold.to(torch.int32),
                            model.bin_edges).contiguous()
-    return (feature, thr, model.leaf_weight.to(torch.float32).contiguous(),
+    return (feature, thr, leaf.to(torch.float32).contiguous(),
             model.tree_scale.to(torch.float32).contiguous())

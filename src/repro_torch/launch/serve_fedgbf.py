@@ -21,13 +21,23 @@ without a host-side staging copy.  Latency is taken after
     PYTHONPATH=src python -m repro_torch.launch.serve_fedgbf --rounds 20 \
         --save /tmp/model
 
-``--quantize`` and ``--metrics-port`` are not ported yet.
+    # serve it int8-quantized, with a live localhost scrape endpoint
+    PYTHONPATH=src python -m repro_torch.launch.serve_fedgbf \
+        --checkpoint /tmp/model --quantize 8 --metrics-port 9109
+
+``--quantize 8|16`` serves a ``QuantizedEnsemble`` whose stochastic
+rounding draws are ``quantize_ensemble``'s default ones (not the JAX
+launcher's ``PRNGKey(0)`` draws, so the tables differ, within the same
+printed bound); a checkpoint that is already quantized (either package's)
+serves as it is.  ``--metrics-port`` serves the Prometheus exposition on
+localhost for the stream's duration and scrapes it once at the end.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+import urllib.request
 import warnings
 
 import numpy as np
@@ -36,7 +46,12 @@ import torch
 from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.core import boosting
 from repro_torch.core import objective as objective_mod
-from repro_torch.core.types import pack_ensemble
+from repro_torch.core.types import (
+    PackedEnsemble,
+    margin_delta_bound,
+    pack_ensemble,
+    quantize_ensemble,
+)
 from repro_torch.data import synthetic
 from repro_torch.device import resolve
 from repro_torch.obs import metrics as obs_metrics
@@ -214,8 +229,8 @@ class BatchLadder:
 class ModelSlot:
     """Hot-reloadable model holder with validate-before-swap.
 
-    ``try_reload`` loads a candidate checkpoint (sha256-verified) onto the
-    current model's device, scores a zero probe batch, runs every warm
+    ``try_reload`` loads a candidate checkpoint (packed or quantized,
+    sha256-verified) onto the current model's device, scores a zero probe batch, runs every warm
     rung, and only then swaps it in.  A failure leaves the previous model
     serving and counts on ``fedgbf_serve_reload_failures_total`` alone.
     """
@@ -347,9 +362,9 @@ def score_stream(
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--checkpoint", default=None,
-                    help="packed checkpoint path (either package's "
-                         "checkpoint.io.save_ensemble); without one, a "
-                         "model is trained first")
+                    help="packed or quantized checkpoint path (either "
+                         "package's checkpoint.io.save_ensemble); without "
+                         "one, a model is trained first")
     ap.add_argument("--save", default=None,
                     help="save the (freshly trained) packed model here")
     ap.add_argument("--rounds", type=int, default=10,
@@ -377,9 +392,18 @@ def main(argv=None) -> None:
                          "a p99 budget")
     ap.add_argument("--ladder-min", type=int, default=256,
                     help="smallest ladder rung (adaptive mode)")
+    ap.add_argument("--quantize", type=int, choices=[8, 16], default=None,
+                    metavar="BITS",
+                    help="serve an int8/int16 QuantizedEnsemble (stochastic "
+                         "leaf rounding; margin error provably bounded, "
+                         "printed at startup)")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write the Prometheus text exposition of the "
                          "stream metrics here ('-' for stdout)")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="serve the exposition on a localhost HTTP scrape "
+                         "endpoint (0 = ephemeral port) for the stream's "
+                         "duration")
     ap.add_argument("--reload", default=None, metavar="PATH",
                     help="hot-reload this checkpoint (validate-before-swap)")
     ap.add_argument("--reload-at-batch", type=int, default=None, metavar="N",
@@ -405,6 +429,11 @@ def main(argv=None) -> None:
     if args.save:
         ckpt_io.save_ensemble(args.save, packed)
         print(f"saved packed checkpoint to {args.save}")
+    if args.quantize:
+        if isinstance(packed, PackedEnsemble):
+            packed = quantize_ensemble(packed, bits=args.quantize)
+        print(f"serving int{packed.bits} quantized tables: margin error "
+              f"bound {margin_delta_bound(packed):.3e}")
 
     # Synthetic request stream: resample test rows up to --requests users.
     rng = np.random.default_rng(0)
@@ -420,6 +449,11 @@ def main(argv=None) -> None:
                          if adaptive else [batch_size])
 
     sm = StreamMetrics(batch_size)
+    server = None
+    if args.metrics_port is not None:
+        server = obs_metrics.serve_metrics_http(sm.registry,
+                                                port=args.metrics_port)
+        print(f"metrics scrape endpoint: {server.url}")
     slot = ModelSlot(packed, args.impl, metrics=sm, warm_sizes=ladder.sizes)
     swap_plan = {}
     if args.reload:
@@ -456,6 +490,14 @@ def main(argv=None) -> None:
             with open(args.metrics_out, "w") as f:
                 f.write(text)
             print(f"metrics exposition -> {args.metrics_out}")
+    if server is not None:
+        # one self-scrape proves the endpoint served the live registry; no
+        # proxy: the endpoint is on this host
+        opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+        with opener.open(server.url) as resp:
+            lines = resp.read().decode().count("\n")
+        print(f"self-scrape {server.url}: {lines} exposition lines")
+        server.close()
     print(f"score head: {scores[:5]}")
 
 

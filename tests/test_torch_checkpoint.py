@@ -96,13 +96,19 @@ def test_corrupt_checkpoint_refused(model, tmp_path, damage):
 
 
 def test_unported_and_foreign_sidecars_refused(model, tmp_path):
+    """A quantized sidecar (ported now) loads as a ``QuantizedEnsemble``
+    with the JAX tables; a sidecar of no ensemble is refused."""
     from repro.core.types import quantize_ensemble
 
     arrays, meta, _ = model
     qpath = str(tmp_path / "q8")
-    j_io.save_ensemble(qpath, quantize_ensemble(jax_packed(arrays, meta), 8))
-    with pytest.raises(ValueError, match="not ported yet"):
-        t_io.load_ensemble(qpath, device="cpu")
+    jq = quantize_ensemble(jax_packed(arrays, meta), 8)
+    j_io.save_ensemble(qpath, jq)
+    tq = t_io.load_ensemble(qpath, device="cpu")
+    assert tq.bits == 8
+    for f in ("feature", "threshold", "leaf_q", "leaf_scale"):
+        np.testing.assert_array_equal(getattr(tq, f).numpy(),
+                                      np.asarray(getattr(jq, f)))
     ppath = str(tmp_path / "tree")
     j_io.save_pytree(ppath, {"a": jnp.zeros(3)})
     with pytest.raises(ValueError, match="not a packed-ensemble"):

@@ -53,6 +53,8 @@ def test_training_paths_on_card(smoke):
 
 @pytest.mark.cuda
 def test_launchers_on_card(smoke):
-    """train_fedgbf --backend local-cuda writes what serve_fedgbf serves."""
-    chip_smoke, _ = smoke
-    chip_smoke.phase_launchers()
+    """train_fedgbf killed and resumed ends in the uninterrupted run's
+    train state; --sampling goss trains; serve_fedgbf --save hands a model
+    to serve_fedgbf --quantize 8 --metrics-port 0."""
+    chip_smoke, device = smoke
+    chip_smoke.phase_launchers(device)

@@ -18,6 +18,7 @@ Regenerate all four files (uses JAX; about 45 s on a CPU):
 
 from __future__ import annotations
 
+import ast
 import os
 import subprocess
 import sys
@@ -163,6 +164,28 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 30, out.stdout
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            yield node.module
+
+
+def test_port_sources_name_no_jax():
+    """No source file shipped under ``src/repro_torch/`` (data folders
+    included, which ``walk_packages`` does not reach) and not
+    ``chip_smoke.py`` imports JAX or the JAX package, deferred imports
+    inside functions included."""
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    bad = [(str(path.relative_to(ROOT)), name) for path in files
+           for name in _imported_modules(path)
+           if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+    assert len(files) >= 30
 
 
 def _regenerate() -> None:

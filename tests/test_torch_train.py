@@ -28,22 +28,13 @@ from repro_torch.core.types import TreeConfig as TTreeConfig
 from repro_torch.core.types import pack_ensemble
 from repro_torch.data import synthetic as t_synthetic
 from test_torch_reference import CKPT, METRIC_KEYS, TRAIN
-from torch_parity import assert_trees_equal, jax_step_masks
+from torch_parity import assert_trees_equal, jax_config, jax_step_masks
 
 ATOL = 1e-5
 
 
-def _jax_cfg(t_cfg):
-    """The JAX package's FedGBFConfig with the same fields as ``t_cfg``."""
-    from repro.core.types import FedGBFConfig, TreeConfig
-
-    fields = dataclasses.asdict(t_cfg)
-    tree = TreeConfig(**fields.pop("tree"))
-    return FedGBFConfig(tree=tree, **fields)
-
-
 def _train_both(t_cfg, ds, backend, eval_every=1, valid=False):
-    j_cfg = _jax_cfg(t_cfg)
+    j_cfg = jax_config(t_cfg)
     n, d = ds.x_train.shape
     smask, fmask = jax_step_masks(j_cfg, n, d)
     vkw = dict(x_valid=ds.x_test, y_valid=ds.y_test) if valid else {}
@@ -101,7 +92,7 @@ def test_shared_root_and_multiclass_equal_jax_scan():
     (jm, jh), (tm, th) = _train_both(cfg, ds, "local-cuda")
     _assert_same_run((jm, jh), (tm, th))
     plan = t_boosting._plan_segments(cfg, ds.x_train.shape[0])
-    assert plan == j_boosting._plan_segments(_jax_cfg(cfg),
+    assert plan == j_boosting._plan_segments(jax_config(cfg),
                                              ds.x_train.shape[0])
     assert [seg["root_delta_rows"] for seg in th.segments] == [
         p[3] for p in plan] and any(p[3] for p in plan)
@@ -154,15 +145,19 @@ def test_native_sampler_keep_counts():
 
 
 def test_unported_options_and_no_fallback():
+    """Party dropout waits for the federation slice; GOSS takes GOSS
+    draws, not sample masks; wrong shapes and a missing card raise."""
     ds = t_synthetic.load("default_credit_card", n=300)
     cfg = t_boosting.dynamic_fedgbf_config(rounds=2)
-    with pytest.raises(NotImplementedError, match="GOSS"):
+    uniform = t_forest.draw_step_masks(cfg, 210, 23,
+                                       torch.Generator().manual_seed(0))
+    with pytest.raises(TypeError, match="GossDraws"):
         t_boosting.train_fedgbf(ds.x_train, ds.y_train,
                                 dataclasses.replace(cfg, sampling="goss"),
-                                device="cpu")
+                                uniform, device="cpu")
     with pytest.raises(NotImplementedError, match="federation"):
         t_boosting.train_fedgbf(ds.x_train, ds.y_train, cfg, device="cpu",
-                                start_round=1)
+                                round_feature_mask=np.ones((2, 23), bool))
     bad = t_forest.StepMasks(torch.ones(3, 210), torch.ones(3, 23,
                                                             dtype=bool))
     with pytest.raises(ValueError, match="scheduled builds"):
@@ -210,7 +205,9 @@ def test_train_cli_reconciles_with_jax_launcher(tmp_path, capsys,
     assert sorted(got) == sorted(want) == [0, 1, 2, 3]
     for key in want:
         np.testing.assert_allclose(got[key], want[key], rtol=0, atol=1.5e-4)
-    assert t_io.load_ensemble(str(ckpt), device="cpu").total_trees == 11
+    state = t_io.load_train_state(str(ckpt), device="cpu")
+    assert state["completed_rounds"] == 3
+    assert state["packed"].total_trees == 11
     assert trace.stat().st_size > 0
     t_cli.main(["--device", "cpu", "--rounds", "2", "--n", "600",
                 "--backend", "local", "--log-json"])

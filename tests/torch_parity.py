@@ -103,6 +103,58 @@ def jax_step_masks(cfg, n, d, seed=0):
     return np.asarray(smask), np.asarray(fmask)
 
 
+def jax_step_keys(cfg, seed=0):
+    """The (S, 2) per-build keys of the JAX scan engine
+    (``boosting.py:576-584``): one split of ``PRNGKey(seed)`` per round,
+    one ``fold_in`` per tree slot."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import dynamic
+
+    _, flat = dynamic.flat_schedule(cfg)
+    rng = jax.random.PRNGKey(seed)
+    round_keys = []
+    for _ in range(cfg.rounds):
+        rng, k_round = jax.random.split(rng)
+        round_keys.append(k_round)
+    return jax.vmap(jax.random.fold_in)(
+        jnp.stack(round_keys)[jnp.asarray(flat.round_of_step)],
+        jnp.asarray(flat.tree_in_round))
+
+
+def jax_goss_draws(cfg, n, d, seed=0):
+    """GOSS's draws as ``goss_masks_from_keys`` makes them from each
+    build's key: ``uniform(ks, (n,))`` and ``permutation(kf, d) < d_keep``
+    with ``ks, kf = split(key)``.  Returns numpy (S, n) float32 and (S, d)
+    bool."""
+    import jax
+
+    from repro.core import forest as forest_mod
+
+    d_keep = forest_mod.feature_keep_count(d, cfg.rho_feat)
+
+    def one(key):
+        ks, kf = jax.random.split(key)
+        return (jax.random.uniform(ks, (n,)),
+                jax.random.permutation(kf, d) < d_keep)
+
+    u, f = jax.vmap(one)(jax_step_keys(cfg, seed))
+    return np.asarray(u), np.asarray(f)
+
+
+def jax_config(t_cfg):
+    """The JAX package's FedGBFConfig with the same fields as the port's
+    ``t_cfg``."""
+    import dataclasses
+
+    from repro.core.types import FedGBFConfig, TreeConfig
+
+    fields = dataclasses.asdict(t_cfg)
+    tree = TreeConfig(**fields.pop("tree"))
+    return FedGBFConfig(tree=tree, **fields)
+
+
 def assert_trees_equal(t_trees, j_trees, leaf_atol=1e-5):
     """Port trees (tensors) against JAX trees (arrays): structure exact,
     leaves within ``leaf_atol``."""
