@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Build and check the PyTorch/CUDA port of FedGBF on one NVIDIA card:
 serving (f32 and int8/int16 quantized) through the ensemble-traversal
-kernels, then training (uniform and GOSS sampling, kill and resume)
-through the histogram kernel.
+kernels, then training (uniform and GOSS sampling, kill and resume, and
+vertically federated with 4 parties) through the histogram kernel.
 
     python3 chip_smoke.py
 
@@ -63,6 +63,16 @@ package.  Phases, each of which raises on failure (exit code 1):
    c. Kill and resume: 4's run stopped after round 8, its train state
       saved and loaded, rounds 9-20 trained from the stored margins: the
       packed ensemble and final margins equal 4's.
+   d. Federated: ``vfl-histogram`` with 4 parties as column blocks (the
+      23 features padded to 24, native masks from seed 0): 240 histogram
+      launches (one a party a level), trees, leaves, final margins and
+      the test rows' ``fused-cuda`` scores ``torch.equal`` to a
+      ``local-cuda`` run on the same columns and masks, the wire-byte
+      ledger reconciled (delta 0 on every phase) and the run's own meter
+      equal to it, the round wall beside ``local-cuda``'s; ``vfl-argmax``
+      (trees equal) and ``vfl-histogram-q8`` (trains, reconciles, its
+      histogram bytes under a quarter of raw's); one party's launch
+      (21000 x 6) timed beside a full-width one.
 5. The other two entry points' paths: round 1 rebuilt with per-tree
    providers (the single-tree entry point) and with the staged provider
    (``histogram_dispatch("cuda")``); both must build the ``local-cuda``
@@ -1107,6 +1117,205 @@ def phase_resume(device, card, train) -> dict:
 
 
 
+VFL_PARTIES = 4
+VFL_FEATURES = 24          # default_credit_card's 23 padded for 4 parties
+
+
+def _padded_credit(parties: int):
+    """default_credit_card with its features padded (constant columns) until
+    ``parties`` divides them, as the launcher and the JAX package pad."""
+    from repro_torch.data import synthetic, tabular
+
+    ds = synthetic.load("default_credit_card")
+    x_train, d = tabular.pad_features(np.asarray(ds.x_train), parties)
+    x_test, _ = tabular.pad_features(np.asarray(ds.x_test), parties)
+    return x_train, np.asarray(ds.y_train), x_test, d
+
+
+def phase_vfl_train(device, card) -> dict:
+    """Phase 4d: vertically federated training with 4 parties as column
+    blocks on the card, ``dynamic_fedgbf_config(rounds=20)`` on
+    ``default_credit_card`` padded to 24 features, native masks from seed 0
+    drawn for 24 columns:
+
+    * ``vfl-histogram``: exactly 4 x 60 = 240 round-histogram launches (one
+      per party per level, each on its 21000 x 6 block); trees, leaves and
+      final margins ``torch.equal`` to a ``local-cuda`` run on the same
+      padded columns and masks; the wire-byte ledger (the dry probe)
+      reconciled with the wire model on every phase, delta 0, and the
+      run's own meter equal to the ledger's measured bytes; the test rows
+      scored once through ``fused-cuda``, equal to the ``local-cuda``
+      model's scores; the round wall beside ``local-cuda``'s;
+    * ``vfl-argmax``: 240 launches, trees equal to ``local-cuda``;
+    * ``vfl-histogram-q8`` with native draws: trains (finite margins),
+      240 launches, the ledger reconciled, its histogram bytes (int8
+      payload + scales) the wire model's and under the raw run's;
+    * one party's launch (21000 x 6, the 5 trees of round 1, level 0)
+      timed beside a full-width one (21000 x 24) and the plain version."""
+    import torch
+
+    from repro_torch.core import backend as backend_mod
+    from repro_torch.core import boosting, forest
+    from repro_torch.core.types import pack_ensemble
+    from repro_torch.federation import compress, protocol
+    from repro_torch.kernels.ensemble_predict import ops as ep_ops
+    from repro_torch.kernels.histogram import ops
+
+    x_train, y_train, x_test, d = _padded_credit(VFL_PARTIES)
+    check(d == VFL_FEATURES, f"features padded to {VFL_FEATURES}")
+    n = x_train.shape[0]
+    cfg = boosting.dynamic_fedgbf_config(rounds=REF_ROUNDS)
+    tree = cfg.tree
+    masks = forest.draw_step_masks(cfg, n, d,
+                                   torch.Generator().manual_seed(0))
+    want_launches = VFL_PARTIES * REF_HIST_LAUNCHES
+
+    def train(backend):
+        ops.reset_launches()
+        model, history = boosting.train_fedgbf(
+            x_train, y_train, cfg, masks, backend=backend, device=device)
+        torch.cuda.synchronize()
+        return model, history, {k: ops.kernel_launches(k)
+                                for k in ops.KERNELS}
+
+    local, local_h, _ = train("local-cuda")
+    meter = compress.MessageMeter()
+    vfl = backend_mod.get_backend("vfl-histogram", tree=tree,
+                                  num_parties=VFL_PARTIES, meter=meter)
+    model, history, launches = train(vfl)
+    for kernel in ("histogram_round", "histogram_sort"):
+        check(launches[kernel] == want_launches,
+              f"vfl-histogram: {launches[kernel]} {kernel} launches == "
+              f"{VFL_PARTIES} parties x {REF_HIST_LAUNCHES}")
+    check(_same_trees(model, local),
+          "vfl-histogram trees, leaves == local-cuda's on the padded data")
+    check(np.array_equal(history.final_margin, local_h.final_margin),
+          "vfl-histogram final margins == local-cuda's, bit for bit")
+
+    ledger = compress.reconciled_ledger(VFL_PARTIES, tree, cfg,
+                                        n_samples=n, num_features=d)
+    rec = ledger.reconcile()
+    check(all(v["match"] and v["delta"] == 0 for v in rec.values()),
+          f"wire bytes reconcile on every phase: {rec}")
+    live = meter.phase_totals()
+    passive = VFL_PARTIES - 1
+    for phase, nbytes in live.items():
+        mult = passive if phase in protocol.PER_PASSIVE_PHASES else 1
+        check(mult * nbytes == ledger.measured[phase],
+              f"the run's own meter, {phase}: {mult} x {nbytes} == the "
+              f"ledger's {ledger.measured[phase]}")
+
+    x_t = torch.from_numpy(np.ascontiguousarray(x_test)).to(device)
+    ep_ops.reset_launches()
+    fed_scores = boosting.predict(pack_ensemble(model), x_t,
+                                  impl="fused-cuda")
+    torch.cuda.synchronize()
+    score_launches = ep_ops.kernel_launches("ensemble_predict_raw")
+    check(score_launches == 1, f"scoring: {score_launches} launch == 1")
+    check(torch.equal(fed_scores, boosting.predict(
+        pack_ensemble(local), x_t, impl="fused-cuda")),
+        f"{x_t.shape[0]} test rows scored by the federated model == the "
+        "local-cuda model's, bit for bit")
+    print(f"train vfl-histogram, {VFL_PARTIES} parties on {card}: "
+          f"{n} x {d} rows ({d // VFL_PARTIES} columns a party), launches "
+          f"{launches}; trees, leaves, margins and test scores == local-"
+          f"cuda; wall per round {_walls_ms(history)}, local-cuda's "
+          f"{_walls_ms(local_h)}; wire bytes "
+          f"{rec['total']['measured']} measured == {rec['total']['predicted']}"
+          f" predicted (match=True): " + ", ".join(
+              f"{k} {v['measured']}" for k, v in rec.items()
+              if k != "total" and v["measured"]))
+
+    argmax, argmax_h, a_launches = train(backend_mod.get_backend(
+        "vfl-argmax", tree=tree, num_parties=VFL_PARTIES))
+    check(a_launches["histogram_round"] == want_launches,
+          f"vfl-argmax: {a_launches['histogram_round']} launches")
+    check(_same_trees(argmax, local)
+          and np.array_equal(argmax_h.final_margin, local_h.final_margin),
+          "vfl-argmax trees, leaves and margins == local-cuda's")
+    print(f"train vfl-argmax on {card}: trees == local-cuda, "
+          f"{a_launches['histogram_round']} launches, wall per round "
+          f"{_walls_ms(argmax_h)}")
+
+    _, q8_h, q_launches = train(backend_mod.get_backend(
+        "vfl-histogram-q8", tree=tree, num_parties=VFL_PARTIES))
+    check(q_launches["histogram_round"] == want_launches,
+          f"vfl-histogram-q8: {q_launches['histogram_round']} launches")
+    check(np.isfinite(q8_h.final_margin).all()
+          and q8_h.final_margin.shape == (n,), "q8 margins finite, (n,)")
+    q_rec = compress.reconciled_ledger(
+        VFL_PARTIES, tree, cfg, transport=compress.Q8, n_samples=n,
+        num_features=d).reconcile()
+    check(all(v["match"] for v in q_rec.values()),
+          f"q8 wire bytes reconcile: {q_rec}")
+    q_hist, raw_hist = (q_rec["histograms"]["measured"],
+                        rec["histograms"]["measured"])
+    check(q_hist < raw_hist / 4, f"q8 histogram bytes {q_hist} under a "
+          f"quarter of raw's {raw_hist}")
+    print(f"train vfl-histogram-q8 on {card}: {q_launches['histogram_round']}"
+          f" launches, final train {q8_h.train[-1]} (raw "
+          f"{history.train[-1]}); histogram bytes {q_hist} measured == "
+          f"predicted, raw {raw_hist} ({raw_hist / q_hist:.2f}x); wall per "
+          f"round {_walls_ms(q8_h)}")
+    timing = _time_party_launch(device, x_train, y_train, masks)
+    return {"launches": launches, "timing": timing,
+            "score_launches": score_launches}
+
+
+def _time_party_launch(device, x_train, y_train, masks) -> dict:
+    """Each party's round-histogram launch at round 1's level-0 shape
+    (21000 x 6, B = 32, 5 trees; the last block holds the constant pad
+    column, one slot with every row) beside a full-width launch (21000 x
+    24) in the same call, CUDA events; party 0's plain version and bound."""
+    import torch
+
+    from repro_torch.core import binning
+    from repro_torch.core import objective as objective_mod
+    from repro_torch.kernels.histogram import ops, ref
+
+    x = torch.from_numpy(np.ascontiguousarray(x_train)).to(device)
+    y = torch.from_numpy(y_train.astype(np.float32)).to(device)
+    binned, _ = binning.fit_bin(x, 32)
+    obj = objective_mod.get_objective("logistic")
+    g, h = obj.grad_hess(y, obj.init_raw(x.shape[0], device=device))
+    g2, h2 = g[:, None].contiguous(), h[:, None].contiguous()
+    w = masks.sample[:5].to(device).contiguous()
+    n, n_trees = binned.shape[0], w.shape[0]
+    assign = torch.zeros((n_trees, n), dtype=torch.int32, device=device)
+    d_party = binned.shape[1] // VFL_PARTIES
+    blocks = [binned[:, p * d_party:(p + 1) * d_party].contiguous()
+              for p in range(VFL_PARTIES)]
+
+    def launch(keys):
+        return ops.histogram_round(keys, assign, g2, h2, w, 1, 32, False)
+
+    party_ms = [time_ms(lambda k=k: launch(k), iters=50, warmup=5)
+                for k in blocks]
+    full_ms = time_ms(lambda: launch(binned), iters=50, warmup=5)
+    plain_ms = time_ms(lambda: ref.histogram_round_ref(
+        blocks[0], assign, g2, h2, w, 1, 32, False), iters=5, warmup=1)
+    for p, block in enumerate(blocks):
+        check(torch.equal(launch(block)[0], ref.histogram_round_ref(
+            block, assign, g2, h2, w, 1, 32, False)),
+            f"party {p}'s launch == its plain version")
+    nbytes = (blocks[0].numel() * 4 + 2 * assign.numel() * 4
+              + 2 * g2.numel() * 4 + n_trees * d_party * 32 * 3 * 4)
+    bound_ms, bound_by = hist_bound(nbytes, float((w != 0).sum()) * d_party
+                                    * 3)
+    print(f"time histogram_round party blocks {n}x{d_party} T={n_trees} "
+          f"level 0: kernel " + " / ".join(f"{ms:.5f}" for ms in party_ms)
+          + f" ms (parties 0-{VFL_PARTIES - 1}; sum {sum(party_ms):.5f}), "
+          f"full width {n}x{binned.shape[1]} {full_ms:.5f} ms in the same "
+          f"call; party 0: longest segment "
+          f"{longest_segment(ops.sort_slots(blocks[0], assign, 1, 32)[1])} "
+          f"rows, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+          f"({bound_by}); last party's longest segment "
+          f"{longest_segment(ops.sort_slots(blocks[-1], assign, 1, 32)[1])}"
+          " rows")
+    return {"party_ms": party_ms[0], "parties_ms": party_ms,
+            "full_ms": full_ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+
+
 def round1_inputs(train, device):
     """binned, g, h and the masks of round 1 of the reference run."""
     import torch
@@ -1523,10 +1732,14 @@ def main() -> int:
         launches[kernel] += count
     train = phase_train(device, card)
     # every training run's round histograms (each sorting first): the
-    # uniform reference run, GOSS, and the reference run killed and resumed
+    # uniform reference run, GOSS, the reference run killed and resumed,
+    # and the 4-party vfl-histogram run
+    vfl = phase_vfl_train(device, card)
+    launches["ensemble_predict_raw"] += vfl["score_launches"]
     runs = (train["launches"],
             phase_goss_train(device, card, train["history"])["launches"],
-            phase_resume(device, card, train)["launches"])
+            phase_resume(device, card, train)["launches"],
+            vfl["launches"])
     for kernel in ("histogram_round", "histogram_sort"):
         launches[kernel] = sum(run[kernel] for run in runs)
     launches.update(phase_other_paths(device, train))
@@ -1537,15 +1750,19 @@ def main() -> int:
     phase_train_profile(device)
     paths = {
         "ensemble_predict_raw": "serve fused-cuda, 1,048,576 requests each "
-                                "of the f32, int8 and int16 checkpoints",
+                                "of the f32, int8 and int16 checkpoints; "
+                                "the federated model scores the test rows",
         "ensemble_predict_binned": "serve cuda, 65,536 requests each of "
                                    "the f32, int8 and int16 checkpoints",
         "histogram_round": "train_fedgbf local-cuda, 20 rounds: uniform, "
-                           "GOSS, and uniform killed after 8 and resumed",
+                           "GOSS, and uniform killed after 8 and resumed; "
+                           "vfl-histogram, 4 parties, one launch a party "
+                           "a level",
         "histogram_tree": "round 1, per-tree providers",
         "histogram_staged": "round 1, histogram_dispatch('cuda')",
         "histogram_sort": "the first step of every histogram_round launch",
     }
+    timing["histogram_round"]["party_ms"] = vfl["timing"]["party_ms"]
     shapes = {
         "ensemble_predict_raw": f"{BATCH}x23, 78 trees, depth 3",
         "ensemble_predict_binned": f"{BATCH}x23, 78 trees, depth 3",
@@ -1566,6 +1783,9 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms"), "shape": shape,
             "path": paths[name],
+            **({"party_ms": t["party_ms"], "party_shape":
+                "21000x6, B=32, 5 trees, level 0"} if "party_ms" in t
+               else {}),
         })
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")

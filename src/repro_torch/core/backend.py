@@ -15,7 +15,12 @@ and an execution descriptor.  Named backends come from a registry:
 
 Split search, routing and leaf statistics stay plain PyTorch on every
 backend, as they stay plain XLA on the JAX package's ``local-pallas``.
-The federated ``vfl-*`` backends come with the federation slice.
+
+The federated ``vfl-*`` names (``federation/vfl.py``, registered on first
+use, as in the JAX package) take ``tree=`` and ``num_parties=``; they
+override the whole forest build (``forest_builder`` /
+``forest_builder_per_tree``) and run every party's histogram on the
+histogram kernel.
 """
 
 from __future__ import annotations
@@ -30,10 +35,24 @@ _REGISTRY: dict = {}
 class BackendDescriptor:
     """Execution metadata: ``impl`` is the registry name and
     ``histogram_impl`` the histogram provider family (``"segment"`` or
-    ``"cuda"``)."""
+    ``"cuda"``).  The federated backends also fill the party fields:
+    ``num_parties``, ``party_axis`` (the JAX package's mesh axis name),
+    ``transport`` (``"raw"``, ``"q8"``, ``"q16"``, ``"topk"``) with the
+    full ``compress.TransportSpec`` for non-raw formats (the tag cannot
+    carry non-default parameters, and byte accounting must not guess
+    them), and ``async_exchange``."""
 
     impl: str
     histogram_impl: str = "segment"
+    num_parties: int = 1
+    party_axis: Optional[str] = None
+    transport: str = "raw"
+    transport_spec: Optional[object] = None
+    async_exchange: bool = False
+
+    @property
+    def is_federated(self) -> bool:
+        return self.party_axis is not None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +70,10 @@ class TreeBackend:
         contract, with the ``level`` and ``root_delta_rows`` keywords);
       choose_fn / round_choose_fn  histogram -> ``SplitDecision``;
       route_fn / round_route_fn  (binned, assign, decision) -> assign;
-      leaf_fn / round_leaf_fn  ``leaf_stats`` / ``round_leaf_stats``.
+      leaf_fn / round_leaf_fn  ``leaf_stats`` / ``round_leaf_stats``;
+      forest_builder / forest_builder_per_tree  full overrides of
+        ``forest.build_forest`` / ``build_forest_per_tree`` (the federated
+        backends: the party split and the (g, h) broadcast happen there).
 
     ``core.tree.build_round`` prefers a round provider and lifts a per-tree
     one over the tree axis.
@@ -68,6 +90,8 @@ class TreeBackend:
     round_choose_fn: Optional[Callable] = None
     round_route_fn: Optional[Callable] = None
     round_leaf_fn: Optional[Callable] = None
+    forest_builder: Optional[Callable] = None
+    forest_builder_per_tree: Optional[Callable] = None
 
     @property
     def name(self) -> str:
@@ -76,6 +100,10 @@ class TreeBackend:
     def build_forest(self, binned, g, h, sample_mask, feature_mask, cfg,
                      root_delta_rows=0):
         """Build one forest layer: (trees, bagging-mean train prediction)."""
+        if self.forest_builder is not None:
+            return self.forest_builder(binned, g, h, sample_mask,
+                                       feature_mask, cfg,
+                                       root_delta_rows=root_delta_rows)
         from repro_torch.core import forest as forest_mod
 
         return forest_mod.build_forest(
@@ -85,6 +113,10 @@ class TreeBackend:
     def build_forest_per_tree(self, binned, g, h, sample_mask, feature_mask,
                               cfg, root_delta_rows=0):
         """Build one forest layer: (trees, per-tree train predictions)."""
+        if self.forest_builder_per_tree is not None:
+            return self.forest_builder_per_tree(
+                binned, g, h, sample_mask, feature_mask, cfg,
+                root_delta_rows=root_delta_rows)
         from repro_torch.core import forest as forest_mod
 
         return forest_mod.build_forest_per_tree(
@@ -105,11 +137,16 @@ def register_backend(name: str, factory: Callable[..., TreeBackend]) -> None:
 
 
 def available_backends() -> tuple:
+    """Registered names (registering the ``vfl-*`` ones first)."""
+    _ensure_vfl_registered()
     return tuple(sorted(_REGISTRY))
 
 
 def get_backend(name: str, **kwargs) -> TreeBackend:
-    """Construct a named backend."""
+    """Construct a named backend; ``vfl-*`` names need ``tree=`` and take
+    ``num_parties=`` (default 2)."""
+    if name not in _REGISTRY and name.startswith("vfl"):
+        _ensure_vfl_registered()
     if name not in _REGISTRY:
         raise ValueError(
             f"unknown backend {name!r}; available: {available_backends()}")
@@ -126,6 +163,10 @@ def resolve_backend(backend, **kwargs) -> TreeBackend:
         return backend
     raise TypeError(
         f"backend must be None, str, or TreeBackend; got {backend!r}")
+
+
+def _ensure_vfl_registered() -> None:
+    import repro_torch.federation.vfl  # noqa: F401  (registers vfl-*)
 
 
 def _local_factory(**_kw) -> TreeBackend:

@@ -232,13 +232,17 @@ def train_fedgbf(
         ``forest.GossDraws`` instead (``convert.goss_draws_from_numpy``).
         None draws them natively with ``forest.draw_step_masks`` from seed
         0.  Always the FULL schedule's, also for a window.
-      backend: a registry name (``"local"``, ``"local-cuda"``) or a
-        ``TreeBackend``; None = ``"local"``.
+      backend: a registry name (``"local"``, ``"local-cuda"``, a
+        ``vfl-*`` name: 2 parties, ``cfg.tree``) or a ``TreeBackend``
+        (e.g. ``get_backend("vfl-histogram", tree=cfg.tree,
+        num_parties=4)``); None = ``"local"``.  A federated backend needs
+        d divisible by its parties (``tabular.pad_features``).
       eval_every: evaluate metrics every k rounds (and at the last).
       tracer: an ``obs.trace.Tracer``; None uses the process-global one.
       device: where to train; None = ``cuda`` (``device.resolve``).
-      round_feature_mask: the federation's party-dropout mask; not ported
-        yet, so anything but None raises ``NotImplementedError``.
+      round_feature_mask: the federation's party-dropout mask; it comes
+        with ``federation/runtime.py``, so anything but None raises
+        ``NotImplementedError``.
       start_round, stop_round: train only the 0-based round window [start,
         stop) of the full schedule (masks, keep counts, segment plan and
         eval gating all follow the full run), so chunks stitch to the
@@ -264,11 +268,12 @@ def train_fedgbf(
     if round_feature_mask is not None:
         raise NotImplementedError(
             "round_feature_mask (party dropout) comes with the federation "
-            "slice of the port")
+            "slice of the port that brings federation/runtime.py")
     dev = resolve(device)
     if tracer is None:
         tracer = trace_mod.global_tracer()
-    bk = backend_mod.resolve_backend(backend)
+    # a vfl-* name is built for this run's tree config (and 2 parties)
+    bk = backend_mod.resolve_backend(backend, tree=cfg.tree)
     obj = objective_mod.get_objective(cfg.loss)
     use_goss = cfg.sampling == "goss"
     t_call = time.perf_counter()

@@ -1,4 +1,4 @@
-"""FedGBF training driver on the local backends: the counterpart of
+"""FedGBF training driver: the counterpart of
 ``repro/launch/train_fedgbf.py``.
 
     # on the card (the defaults: --backend local-cuda --device cuda)
@@ -7,6 +7,11 @@
     # on the CPU, through the kernel's plain version or the plain providers
     PYTHONPATH=src python -m repro_torch.launch.train_fedgbf --device cpu \
         --rounds 3 --n 2000 [--backend local] [--sampling goss]
+
+    # vertically federated: 4 parties as column blocks on one card, every
+    # party's histogram on the kernel; prints the wire-byte ledger
+    PYTHONPATH=src python -m repro_torch.launch.train_fedgbf --rounds 20 \
+        --backend vfl-histogram --parties 4 [--device cpu]
 
     # kill and resume: checkpoint the train state every N rounds (atomic
     # npz + sha256 sidecar, the JAX package's layout), stop after round K,
@@ -25,8 +30,18 @@ JAX package's draws instead: ``sample_bits`` as ``np.packbits`` rows,
 ``--checkpoint PATH`` is the train-state path, as in the JAX launcher; the
 packed model for serving comes from ``serve_fedgbf --save``.  A state
 written on the card resumes on the CPU and the reverse: the fingerprint
-leaves out ``--device`` and ``--backend``.  The federated backends come
-with a later slice.
+leaves out ``--device`` and ``--backend``.
+
+Federated backends (``vfl-histogram[-async][-q8|-q16]``,
+``vfl-argmax[-topk]``): the features are padded with constant columns
+(``tabular.pad_features``) until ``--parties`` divides them, the masks are
+drawn for the padded width, and the run prints the JAX launcher's lines:
+the backend and its transport, the Paillier-model estimate and the
+measured wire bytes against the wire model's (``match=``), from the port's
+dry probe (``compress.reconciled_ledger``).  The port has one training
+engine, with the JAX scan engine's contract: ``--engine scan``; ``loop``
+is refused.  ``--data-shards``, party dropout and the chaos flags come
+with their modules in a later slice.
 """
 
 from __future__ import annotations
@@ -51,8 +66,9 @@ from repro_torch.core.types import (
     pack_ensemble,
     unpack_ensemble,
 )
-from repro_torch.data import synthetic
+from repro_torch.data import synthetic, tabular
 from repro_torch.device import resolve
+from repro_torch.federation import compress
 from repro_torch.obs import log as obs_log
 from repro_torch.obs import perfetto
 from repro_torch.obs import trace as obs_trace
@@ -110,15 +126,18 @@ def _load_masks(path: str, sampling: str, device):
                             n=int(z["n"]))
 
 
-def _fingerprint(args, cfg) -> str:
+def _fingerprint(args, cfg, parties=None) -> str:
     """The configuration a train state belongs to: everything that decides
     the trees, nothing that decides only where they are built (``--device``
-    and ``--backend`` are left out)."""
+    and ``--backend`` are left out).  A federated run adds its party count,
+    which decides the padded width and so the masks."""
     masks_sha = None
     if args.masks:
         with open(args.masks, "rb") as f:
             masks_sha = hashlib.sha256(f.read()).hexdigest()
+    extra = {} if parties is None else {"parties": parties}
     return json.dumps({
+        **extra,
         "dataset": args.dataset, "model": args.model, "rounds": cfg.rounds,
         "loss": cfg.loss, "sampling": cfg.sampling,
         "max_depth": args.max_depth, "n": args.n,
@@ -144,7 +163,13 @@ def main(argv=None) -> None:
     ap.add_argument("--backend", default="local-cuda",
                     choices=backend_mod.available_backends(),
                     help="named TreeBackend: local-cuda runs the histogram "
-                         "kernel, local the plain PyTorch providers")
+                         "kernel, local the plain PyTorch providers, vfl-* "
+                         "the parties as column blocks (kernel per party)")
+    ap.add_argument("--parties", type=int, default=2,
+                    help="party count for vfl-* backends")
+    ap.add_argument("--engine", default="scan", choices=("scan", "loop"),
+                    help="training engine: the port has one, with the JAX "
+                         "scan engine's contract; 'loop' is refused")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (no silent CPU fallback)")
     ap.add_argument("--eval-every", type=int, default=1,
@@ -183,6 +208,10 @@ def main(argv=None) -> None:
     ap.add_argument("--stop-after-round", type=int, default=0, metavar="K",
                     help="stop (and checkpoint) after absolute round K")
     args = ap.parse_args(argv)
+    if args.engine == "loop":
+        raise SystemExit(
+            "--engine loop: the port has one training engine, with the scan "
+            "engine's contract (segments, masks up front); use --engine scan")
 
     device = resolve(args.device)
     tracer = obs_trace.Tracer() if args.trace else obs_trace.NULL_TRACER
@@ -199,7 +228,35 @@ def main(argv=None) -> None:
         cfg = dataclasses.replace(cfg, loss=args.loss)
     obj = objective_mod.get_objective(cfg.loss)
 
-    n, d = ds.x_train.shape
+    federated = args.backend.startswith("vfl")
+    x_train, x_test = np.asarray(ds.x_train), np.asarray(ds.x_test)
+    ledger = None
+    if federated:
+        x_train, d_pad = tabular.pad_features(x_train, args.parties)
+        x_test, _ = tabular.pad_features(x_test, args.parties)
+        backend = backend_mod.get_backend(args.backend, tree=tree,
+                                          num_parties=args.parties)
+        desc = backend.descriptor
+        aggregation = "argmax" if "argmax" in desc.impl else "histogram"
+        print(f"backend={backend.name}: {args.parties} parties x 1 data "
+              f"shards, aggregation={aggregation}, "
+              f"transport={desc.transport}"
+              + (", async exchange" if desc.async_exchange else ""))
+        ledger = compress.reconciled_ledger(
+            args.parties, tree, cfg, aggregation=aggregation,
+            transport=desc.transport_spec, n_samples=x_train.shape[0],
+            num_features=d_pad, async_exchange=desc.async_exchange,
+            n_channels=obj.n_classes)
+        cost = ledger.predicted_paillier()
+        print(f"paillier-model bytes (ledger): {cost.total/1e6:.1f} MB "
+              f"{cost.breakdown()}")
+        rec = ledger.reconcile()
+        print(f"wire bytes: measured={rec['total']['measured']/1e6:.1f} MB "
+              f"predicted={rec['total']['predicted']/1e6:.1f} MB "
+              f"(match={rec['total']['match']})")
+    else:
+        backend = args.backend
+    n, d = x_train.shape
     if args.masks:
         masks = _load_masks(args.masks, cfg.sampling, device)
     else:  # the whole schedule's draws, so a resumed run replays them
@@ -211,7 +268,8 @@ def main(argv=None) -> None:
           f"sampling={cfg.sampling}, masks "
           f"{'from ' + args.masks if args.masks else 'drawn from seed 0'}")
 
-    fingerprint = _fingerprint(args, cfg)
+    fingerprint = _fingerprint(args, cfg,
+                               args.parties if federated else None)
     start = 0
     margin_carry = None
     prefix_model = None
@@ -239,7 +297,7 @@ def main(argv=None) -> None:
     while a < stop_limit:
         b = min(a + chunk, stop_limit)
         model_c, hist_c = boosting.train_fedgbf(
-            ds.x_train, ds.y_train, cfg, masks, backend=args.backend,
+            x_train, ds.y_train, cfg, masks, backend=backend,
             eval_every=args.eval_every, verbose=not args.log_json,
             tracer=tracer, device=device, start_round=a, stop_round=b,
             init_margin=margin_carry)
@@ -260,18 +318,23 @@ def main(argv=None) -> None:
     if args.stop_after_round:
         print(f"stopped after round {stop_limit} (checkpointed); re-run "
               "with --resume to continue")
+    per_round_bytes = None
+    if ledger is not None:
+        # the ledger's rows cover the full schedule: clip to this window
+        per_round_bytes = ledger.per_round_measured()[
+            start:start + len(hist.n_trees)]
     if args.log_json:
-        for line in obs_log.render_round_lines(hist):
+        for line in obs_log.render_round_lines(hist, per_round_bytes):
             print(line)
     if args.trace:
-        perfetto.add_training_timeline(tracer, hist)
+        perfetto.add_training_timeline(tracer, hist, per_round_bytes)
         n_events = perfetto.export_chrome_trace(
             args.trace, tracer,
             metadata={"dataset": args.dataset, "backend": args.backend,
                       "engine": hist.engine, "rounds": args.rounds})
         print(f"trace: {n_events} events -> {args.trace}")
     packed = pack_ensemble(model)
-    x_test = torch.as_tensor(np.asarray(ds.x_test), device=device)
+    x_test = torch.as_tensor(x_test, device=device)
     y_test = torch.as_tensor(np.asarray(ds.y_test), device=device)
     margin = boosting.predict(packed, x_test)
     if obj.n_classes > 1:
