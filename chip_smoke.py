@@ -2,7 +2,9 @@
 """Build and check the PyTorch/CUDA port of FedGBF on one NVIDIA card:
 serving (f32 and int8/int16 quantized) through the ensemble-traversal
 kernels, then training (uniform and GOSS sampling, kill and resume, and
-vertically federated with 4 parties) through the histogram kernel.
+vertically federated with 4 parties: raw, quantized, under the chaos
+transport, with party dropout and the gradient-less fallback, and over 2
+row shards) through the histogram kernel.
 
     python3 chip_smoke.py
 
@@ -72,17 +74,29 @@ package.  Phases, each of which raises on failure (exit code 1):
       equal to it, the round wall beside ``local-cuda``'s; ``vfl-argmax``
       (trees equal) and ``vfl-histogram-q8`` (trains, reconciles, its
       histogram bytes under a quarter of raw's); one party's launch
-      (21000 x 6) timed beside a full-width one.
+      (21000 x 6) timed beside a full-width one and one ``index_add_``.
+   e. The rest of the federation on 4d's cell: ``vfl-histogram-chaos``
+      and ``vfl-argmax-topk-chaos`` (drop 0.05, corrupt 0.02, dup 0.02,
+      delay 0.02, seed 13) ``torch.equal`` to their fault-free twins, the
+      retry bytes and injected faults equal to the plan's; ``vfl-histogram``
+      under a party-dropout mask ``torch.equal`` to ``local-cuda`` under
+      it, no split on a degraded column; the gradient-less fallback (4
+      party fits, 240 launches, ledger exact); ``vfl-histogram-sharded``
+      over 2 row shards (480 launches), rounds 1-5 ``torch.equal`` to the
+      same run on CPU tensors; the port's selftest lattice on the card.
+      Each model scores the test rows once through ``fused-cuda``.
 5. The other two entry points' paths: round 1 rebuilt with per-tree
    providers (the single-tree entry point) and with the staged provider
    (``histogram_dispatch("cuda")``); both must build the ``local-cuda``
    round's trees.
-6. The launchers (``python -m repro_torch.launch.*``, four chains side
+6. The launchers (``python -m repro_torch.launch.*``, five chains side
    by side): ``train_fedgbf`` killed after round 3 of 6 and resumed
    (``--checkpoint-every 2``) ends in the uninterrupted run's train state;
-   ``--sampling goss`` trains; ``serve_fedgbf --save`` hands a model to
-   ``serve_fedgbf --checkpoint ... --quantize 8 --metrics-port 0``, which
-   scrapes its own endpoint.
+   ``--sampling goss`` trains; ``vfl-histogram`` trains under the chaos
+   flags and party dropout with the gradient-less fallback, and
+   ``vfl-histogram-sharded`` over ``--data-shards 2``; ``serve_fedgbf
+   --save`` hands a model to ``serve_fedgbf --checkpoint ... --quantize 8
+   --metrics-port 0``, which scrapes its own endpoint.
 7. Timing at the main path's shapes (CUDA events) beside the plain
    versions, the bounds and, for the histogram, one ``index_add_`` (for
    the sort, one stable ``torch.sort``); the traversal kernels also at
@@ -1259,7 +1273,9 @@ def phase_vfl_train(device, card) -> dict:
           f"round {_walls_ms(q8_h)}")
     timing = _time_party_launch(device, x_train, y_train, masks)
     return {"launches": launches, "timing": timing,
-            "score_launches": score_launches}
+            "score_launches": score_launches, "model": model,
+            "history": history, "local": local, "local_history": local_h,
+            "masks": masks, "scores": fed_scores}
 
 
 def _time_party_launch(device, x_train, y_train, masks) -> dict:
@@ -1271,6 +1287,7 @@ def _time_party_launch(device, x_train, y_train, masks) -> dict:
 
     from repro_torch.core import binning
     from repro_torch.core import objective as objective_mod
+    from repro_torch.core.histogram import stack_stats
     from repro_torch.kernels.histogram import ops, ref
 
     x = torch.from_numpy(np.ascontiguousarray(x_train)).to(device)
@@ -1294,6 +1311,17 @@ def _time_party_launch(device, x_train, y_train, masks) -> dict:
     full_ms = time_ms(lambda: launch(binned), iters=50, warmup=5)
     plain_ms = time_ms(lambda: ref.histogram_round_ref(
         blocks[0], assign, g2, h2, w, 1, 32, False), iters=5, warmup=1)
+    # the library yardstick on party 0's block: one index_add_ over its
+    # staged (tree, feature, bin) ids, as phase 7 times the full width
+    flat_ids = ((torch.arange(n_trees, device=device)[:, None, None]
+                 * d_party + torch.arange(d_party, device=device)) * 32
+                + blocks[0].long()[None]).reshape(-1)      # (T*n*d_party,)
+    rows = stack_stats(g, h, w)[:, :, None, :].expand(
+        n_trees, n, d_party, 3).reshape(-1, 3).contiguous()
+    acc = torch.zeros((n_trees * d_party * 32, 3), dtype=torch.float32,
+                      device=device)
+    library_ms = time_ms(lambda: acc.index_add_(0, flat_ids, rows),
+                         iters=50, warmup=5)
     for p, block in enumerate(blocks):
         check(torch.equal(launch(block)[0], ref.histogram_round_ref(
             block, assign, g2, h2, w, 1, 32, False)),
@@ -1308,12 +1336,278 @@ def _time_party_launch(device, x_train, y_train, masks) -> dict:
           f"full width {n}x{binned.shape[1]} {full_ms:.5f} ms in the same "
           f"call; party 0: longest segment "
           f"{longest_segment(ops.sort_slots(blocks[0], assign, 1, 32)[1])} "
-          f"rows, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
-          f"({bound_by}); last party's longest segment "
+          f"rows, plain {plain_ms:.4f} ms, index_add_ {library_ms:.5f} ms, "
+          f"bound {bound_ms:.6f} ms ({bound_by}); last party's longest "
+          "segment "
           f"{longest_segment(ops.sort_slots(blocks[-1], assign, 1, 32)[1])}"
           " rows")
     return {"party_ms": party_ms[0], "parties_ms": party_ms,
-            "full_ms": full_ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+            "full_ms": full_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "library_ms": library_ms}
+
+
+#: phase 4e's chaos spec, party-dropout schedule and data shards
+CHAOS = dict(drop=0.05, corrupt=0.02, dup=0.02, delay=0.02, seed=13)
+DROPOUT = dict(rate=0.4, seed=0, max_retries=1)
+DATA_SHARDS = 2
+SHARD_WINDOW = 5           # rounds of the sharded run held against the CPU
+
+
+def phase_vfl_runtime(device, card, vfl) -> dict:
+    """Phase 4e: the rest of the federation on phase 4d's cell (4 parties,
+    21,000 x 24, native masks from seed 0), each run's launches counted
+    from 0:
+
+    * chaos: ``vfl-histogram-chaos`` and ``vfl-argmax-topk-chaos`` under
+      ``CHAOS``: trees, leaves, margins and test scores ``torch.equal`` to
+      the fault-free twin's; the probe's ``retries`` bytes equal
+      ``wire_retry_bytes`` (the ledger reconciled) and the run's own meter
+      the plan replayed at each round's trees; the injected faults equal
+      ``plan_summary`` times the rounds;
+    * party dropout: ``vfl-histogram`` under ``DROPOUT``'s
+      ``round_feature_mask``: ``torch.equal`` to ``local-cuda`` under the
+      same mask, no split on a degraded column;
+    * the gradient-less fallback over the 4 parties (every one of them
+      degraded in some round): 4 party fits on ``local-cuda``, 4 x 60
+      launches; the margin/rate ledger equal to ``wire_cost``, the rate
+      fit no worse than the concatenation;
+    * the data axis: ``vfl-histogram-sharded`` over 2 row shards, 8
+      launches a level; rounds 1-5 ``torch.equal`` to the same backend on
+      CPU tensors (the plain versions); the trees equal to 4d's unsharded
+      ones and the margins' max difference printed;
+    * the port's selftest lattice with ``--device cuda``, every check
+      passing, its wall printed.
+
+    Every run's round wall is printed beside 4d's ``vfl-histogram``."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.core import backend as backend_mod
+    from repro_torch.core import boosting, dynamic
+    from repro_torch.core.types import pack_ensemble
+    from repro_torch.federation import chaos as chaos_mod
+    from repro_torch.federation import (compress, gradientless, protocol,
+                                        runtime, selftest)
+    from repro_torch.kernels.ensemble_predict import ops as ep_ops
+    from repro_torch.kernels.histogram import ops
+
+    x_train, y_train, x_test, d = _padded_credit(VFL_PARTIES)
+    n = x_train.shape[0]
+    cfg = boosting.dynamic_fedgbf_config(rounds=REF_ROUNDS)
+    tree, masks = cfg.tree, vfl["masks"]
+    x_t = torch.from_numpy(np.ascontiguousarray(x_test)).to(device)
+    want_fed = VFL_PARTIES * REF_HIST_LAUNCHES
+    base_wall = _walls_ms(vfl["history"])
+    launches = {}
+
+    def train(label, backend, dev=device, **kw):
+        ops.reset_launches()
+        model, history = boosting.train_fedgbf(
+            x_train, y_train, cfg, masks, backend=backend, device=dev, **kw)
+        if dev == device:
+            torch.cuda.synchronize()
+        launches[label] = ops.kernel_launches("histogram_round")
+        check(ops.kernel_launches("histogram_sort") == launches[label],
+              f"{label}: every histogram launch sorted once")
+        return model, history
+
+    def score(model, packed=None):
+        ep_ops.reset_launches()
+        out = boosting.predict(packed if packed is not None
+                               else pack_ensemble(model), x_t,
+                               impl="fused-cuda")
+        torch.cuda.synchronize()
+        check(ep_ops.kernel_launches("ensemble_predict_raw") == 1,
+              "one scoring launch")
+        launches["scoring"] = launches.get("scoring", 0) + 1
+        return out
+
+    def same_run(a, a_h, b, b_h) -> bool:
+        return (_same_trees(a, b)
+                and np.array_equal(a_h.final_margin, b_h.final_margin))
+
+    # chaos: bit-identity with the fault-free twins, exact retry bytes
+    spec = chaos_mod.ChaosSpec(**CHAOS)
+    twins = {"vfl-histogram": (vfl["model"], vfl["history"],
+                               vfl["scores"])}
+    for name, agg, transport in (
+            ("vfl-histogram", "histogram", None),
+            ("vfl-argmax-topk", "argmax", compress.TOPK)):
+        if name not in twins:
+            model, hist = train(name, backend_mod.get_backend(
+                name, tree=tree, num_parties=VFL_PARTIES))
+            twins[name] = (model, hist, score(model))
+        base, base_h, base_scores = twins[name]
+        meter = compress.MessageMeter()
+        label = name + "-chaos"
+        model, hist = train(label, backend_mod.get_backend(
+            label, tree=tree, num_parties=VFL_PARTIES, meter=meter,
+            chaos=spec))
+        check(launches[label] == want_fed,
+              f"{label}: {launches[label]} launches == {want_fed}")
+        check(same_run(model, hist, base, base_h)
+              and torch.equal(score(model), base_scores),
+              f"{label} under {spec.tag}: trees, leaves, margins and test "
+              f"scores == {name}'s, bit for bit")
+        ledger = compress.reconciled_ledger(
+            VFL_PARTIES, tree, cfg, aggregation=agg, transport=transport,
+            n_samples=n, num_features=d, chaos=spec)
+        rec = ledger.reconcile()
+        d_party = d // VFL_PARTIES
+        per_tree = protocol.wire_retry_bytes(
+            spec, d_party, tree.num_bins, tree.max_depth, agg, transport,
+            tree.hist_subtraction)
+        check(ledger.matches()
+              and ledger.probe["per_tree"]["retries"] == per_tree,
+              f"{label}: probe retries {ledger.probe['per_tree']['retries']}"
+              f" == wire_retry_bytes {per_tree}; ledger {rec}")
+        slots = protocol._chaos_slot_bytes(d_party, tree.num_bins,
+                                           tree.max_depth, agg, transport,
+                                           tree.hist_subtraction)
+        n_slots = len(slots)
+        replay = 0
+        for m in range(1, cfg.rounds + 1):
+            trees_m = dynamic.n_trees_schedule(cfg, m)
+            for s_, payload in enumerate(slots):
+                tx = chaos_mod.transmissions_for_slot(spec, s_)
+                replay += (tx * chaos_mod.CHECKSUM_BYTES
+                           + (tx - 1) * trees_m * payload)
+        live = meter.phase_totals()["retries"]
+        check(live == replay, f"{label}: the run's retries bytes {live} == "
+              f"the plan replayed at the run's trees {replay}")
+        plan = chaos_mod.plan_summary(spec, n_slots)
+        want_events = {k: cfg.rounds * plan[k] for k in
+                       ("dropped", "corrupted", "duplicated", "delayed",
+                        "retries")}
+        check(meter.events == want_events,
+              f"{label}: injected {meter.events} == {cfg.rounds} rounds x "
+              f"plan_summary {want_events}")
+        print(f"train {label} on {card}: {launches[label]} launches; "
+              f"{spec.tag}: {meter.events} over {cfg.rounds} rounds of "
+              f"{n_slots} slots; trees, leaves, margins and scores == "
+              f"{name}; retries {rec['retries']['measured']} B measured == "
+              f"predicted (per tree {per_tree} B), the run's {live} B; wall "
+              f"per round {_walls_ms(hist)} ({name}: {_walls_ms(base_h)}; "
+              f"4d vfl-histogram {base_wall})")
+
+    # party dropout: the masked federated run == the masked local-cuda run
+    sched = runtime.dropout_schedule(
+        DROPOUT["rate"], cfg.rounds, VFL_PARTIES, seed=DROPOUT["seed"],
+        policy=runtime.RetryPolicy(max_retries=DROPOUT["max_retries"]))
+    rmask = runtime.degradation_masks(sched.degraded, d, VFL_PARTIES)
+    degraded = runtime.degraded_parties(sched)
+    check(rmask is not None and degraded == list(range(VFL_PARTIES)),
+          f"dropout schedule degrades every party in some round: {degraded}")
+    local, local_h = train("local-cuda masked", "local-cuda",
+                           round_feature_mask=rmask)
+    model, hist = train("vfl-histogram masked", backend_mod.get_backend(
+        "vfl-histogram", tree=tree, num_parties=VFL_PARTIES),
+        round_feature_mask=rmask)
+    check(launches["vfl-histogram masked"] == want_fed,
+          f"masked vfl-histogram: {launches['vfl-histogram masked']} "
+          "launches")
+    check(same_run(model, hist, local, local_h)
+          and torch.equal(score(model), score(local)),
+          "masked vfl-histogram: trees, leaves, margins and test scores == "
+          "masked local-cuda's, bit for bit")
+    packed = pack_ensemble(model)
+    selftest.assert_no_banned_splits(packed, rmask)
+    check(not _same_trees(model, vfl["model"]),
+          "the mask changed the trees")
+    print(f"train vfl-histogram, party dropout {DROPOUT} on {card}: "
+          f"{int(sched.degraded.sum())} degraded (round, party) cells in "
+          f"{sched.degraded_rounds} rounds, {int(sched.retries.sum())} "
+          f"retries, backoff {sched.backoff_s:.2f} s simulated; "
+          f"{launches['vfl-histogram masked']} launches; == masked "
+          f"local-cuda, no split on a degraded column; wall per round "
+          f"{_walls_ms(hist)} (4d {base_wall})")
+
+    # the gradient-less fallback for the degraded parties (all 4)
+    meter = compress.MessageMeter()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    gl_packed, info = gradientless.train_gradientless(
+        x_train, y_train, cfg, VFL_PARTIES, meter=meter, device=device)
+    torch.cuda.synchronize()
+    gl_s = time.perf_counter() - t0
+    launches["gradientless"] = ops.kernel_launches("histogram_round")
+    check(ops.kernel_launches("histogram_sort") == launches["gradientless"],
+          "gradient-less: every histogram launch sorted once")
+    check(launches["gradientless"] == VFL_PARTIES * REF_HIST_LAUNCHES,
+          f"gradient-less: {launches['gradientless']} launches == "
+          f"{VFL_PARTIES} party fits x {REF_HIST_LAUNCHES}")
+    want = gradientless.wire_cost(n, info["tree_counts"])
+    got = meter.phase_totals()
+    check(all(got.get(k, 0) == v for k, v in want.items() if k != "total")
+          and sum(got.values()) == want["total"],
+          f"gradient-less ledger {got} == wire_cost {want}")
+    check(info["loss_after"] <= info["loss_before"] + 1e-6,
+          f"rate fit: loss {info['loss_before']} -> {info['loss_after']}")
+    gl_scores = score(None, gl_packed)
+    check(bool(torch.isfinite(gl_scores).all()), "gradient-less scores "
+          "finite")
+    print(f"gradient-less fallback on {card}: parties {degraded}, "
+          f"{launches['gradientless']} launches, {gl_s:.2f} s for 4 party "
+          f"fits and the 300-step rate fit; loss {info['loss_before']:.6f} "
+          f"-> {info['loss_after']:.6f}; ledger {got} == wire_cost")
+
+    # the data axis: 2 row shards, 8 launches a level
+    def sharded():
+        return backend_mod.get_backend(
+            "vfl-histogram-sharded", tree=tree, num_parties=VFL_PARTIES,
+            data_shards=DATA_SHARDS)
+
+    model, hist = train("vfl-histogram-sharded", sharded())
+    want_sh = DATA_SHARDS * want_fed
+    check(launches["vfl-histogram-sharded"] == want_sh,
+          f"sharded: {launches['vfl-histogram-sharded']} launches == "
+          f"{DATA_SHARDS} shards x {VFL_PARTIES} parties x "
+          f"{REF_HIST_LAUNCHES}")
+    win, win_h = train("sharded window", sharded(), stop_round=SHARD_WINDOW)
+    cpu, cpu_h = train("sharded window, CPU", sharded(), dev="cpu",
+                       stop_round=SHARD_WINDOW)
+    fields = ("feature", "threshold", "gain", "leaf_weight")
+    check(len(win.forests) == len(cpu.forests) == SHARD_WINDOW
+          and all(torch.equal(getattr(a, f).cpu(), getattr(b, f))
+                  and torch.equal(getattr(a, f), getattr(c, f))
+                  for a, b, c in zip(win.forests, cpu.forests,
+                                     model.forests)
+                  for f in fields)
+          and np.array_equal(win_h.final_margin, cpu_h.final_margin),
+          f"sharded rounds 1-{SHARD_WINDOW} on the card == on CPU tensors "
+          "(plain versions), and == the full run's first rounds")
+    fed = vfl["model"]
+    same = sum(torch.equal(a.feature[t], b.feature[t])
+               and torch.equal(a.threshold[t], b.threshold[t])
+               for a, b in zip(model.forests, fed.forests)
+               for t in range(a.feature.shape[0]))
+    total = sum(f.feature.shape[0] for f in fed.forests)
+    margin_diff = float(np.abs(hist.final_margin
+                               - vfl["history"].final_margin).max())
+    sh_scores = score(model)
+    check(bool(torch.isfinite(sh_scores).all()), "sharded scores finite")
+    print(f"train vfl-histogram-sharded, {DATA_SHARDS} row shards x "
+          f"{VFL_PARTIES} parties on {card}: "
+          f"{launches['vfl-histogram-sharded']} launches; rounds 1-"
+          f"{SHARD_WINDOW} == the CPU run; {same} of {total} trees' "
+          f"features and thresholds == 4d's unsharded, final margins max "
+          f"|diff| {margin_diff:.3g}; wall per round {_walls_ms(hist)} (4d "
+          f"{base_wall})")
+
+    # the port's selftest lattice on the card
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = selftest.main(["--device", "cuda"])
+    lines = buf.getvalue().splitlines()
+    check(rc == 0 and lines and lines[-1].startswith("ALL FEDERATION"),
+          f"selftest on the card: {lines[-3:]}")
+    print(f"selftest --device cuda on {card}: "
+          f"{sum(line.startswith('OK') for line in lines)} checks passed in "
+          f"{time.perf_counter() - t0:.2f} s ({lines[-1]})")
+    return launches
 
 
 def round1_inputs(train, device):
@@ -1386,7 +1680,7 @@ def _launch(argv: list, want: str, env: dict) -> str:
 
 
 def phase_launchers(device) -> None:
-    """Phase 6, the launchers, in four chains run side by side (both
+    """Phase 6, the launchers, in five chains run side by side (both
     launchers default to cuda):
 
     * ``train_fedgbf --rounds 6 --checkpoint P --checkpoint-every 2
@@ -1394,6 +1688,10 @@ def phase_launchers(device) -> None:
     * ``train_fedgbf --rounds 6 --checkpoint Q``, uninterrupted: P's
       packed model and margins must equal Q's;
     * ``train_fedgbf --rounds 3 --sampling goss``;
+    * ``train_fedgbf --backend vfl-histogram --parties 4`` with the chaos
+      flags, ``--party-dropout 0.5 --retry-max 0 --dropout-fallback
+      gradientless`` (every party degraded in some round), then
+      ``--backend vfl-histogram-sharded --data-shards 2``;
     * ``serve_fedgbf --rounds 3 --save S``, then ``serve_fedgbf
       --checkpoint S --quantize 8 --metrics-port 0``, which prints its
       self-scrape line."""
@@ -1419,6 +1717,16 @@ def phase_launchers(device) -> None:
                                 whole], "checkpoint: 6 rounds")],
             "goss": [([train, "--rounds", "3", "--sampling", "goss"],
                       "sampling=goss")],
+            "federation runtime": [
+                ([train, "--rounds", "3", "--backend", "vfl-histogram",
+                  "--parties", "4", "--chaos-drop", "0.05",
+                  "--chaos-corrupt", "0.02", "--chaos-dup", "0.02",
+                  "--chaos-seed", "13", "--party-dropout", "0.5",
+                  "--retry-max", "0", "--dropout-fallback", "gradientless"],
+                 "gradientless fallback: party 3"),
+                ([train, "--rounds", "3", "--backend",
+                  "vfl-histogram-sharded", "--parties", "4",
+                  "--data-shards", "2"], "4 parties x 2 data shards")],
             "quantized serving": [
                 ([serve_cli, "--rounds", "3", "--save", saved, "--requests",
                   "20000"], "saved packed checkpoint"),
@@ -1742,6 +2050,12 @@ def main() -> int:
             vfl["launches"])
     for kernel in ("histogram_round", "histogram_sort"):
         launches[kernel] = sum(run[kernel] for run in runs)
+    # phase 4e's runs: chaos, party dropout, gradient-less, the data axis
+    # (each histogram launch sorts once, as phase 4e checks)
+    runtime = phase_vfl_runtime(device, card, vfl)
+    launches["ensemble_predict_raw"] += runtime.pop("scoring")
+    for kernel in ("histogram_round", "histogram_sort"):
+        launches[kernel] += sum(runtime.values())
     launches.update(phase_other_paths(device, train))
     phase_launchers(device)
     timing = phase_timing(main_path["packed"], main_path["requests"])
@@ -1751,18 +2065,22 @@ def main() -> int:
     paths = {
         "ensemble_predict_raw": "serve fused-cuda, 1,048,576 requests each "
                                 "of the f32, int8 and int16 checkpoints; "
-                                "the federated model scores the test rows",
+                                "the federated models score the test rows",
         "ensemble_predict_binned": "serve cuda, 65,536 requests each of "
                                    "the f32, int8 and int16 checkpoints",
         "histogram_round": "train_fedgbf local-cuda, 20 rounds: uniform, "
                            "GOSS, and uniform killed after 8 and resumed; "
                            "vfl-histogram, 4 parties, one launch a party "
-                           "a level",
+                           "a level; its chaos, party-dropout, "
+                           "gradient-less and 2-shard runs, one launch a "
+                           "party (and shard) a level",
         "histogram_tree": "round 1, per-tree providers",
         "histogram_staged": "round 1, histogram_dispatch('cuda')",
         "histogram_sort": "the first step of every histogram_round launch",
     }
     timing["histogram_round"]["party_ms"] = vfl["timing"]["party_ms"]
+    timing["histogram_round"]["party_library_ms"] = vfl["timing"][
+        "library_ms"]
     shapes = {
         "ensemble_predict_raw": f"{BATCH}x23, 78 trees, depth 3",
         "ensemble_predict_binned": f"{BATCH}x23, 78 trees, depth 3",
@@ -1783,7 +2101,8 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms"), "shape": shape,
             "path": paths[name],
-            **({"party_ms": t["party_ms"], "party_shape":
+            **({"party_ms": t["party_ms"],
+                "party_library_ms": t["party_library_ms"], "party_shape":
                 "21000x6, B=32, 5 trees, level 0"} if "party_ms" in t
                else {}),
         })

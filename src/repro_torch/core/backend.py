@@ -40,7 +40,9 @@ class BackendDescriptor:
     ``transport`` (``"raw"``, ``"q8"``, ``"q16"``, ``"topk"``) with the
     full ``compress.TransportSpec`` for non-raw formats (the tag cannot
     carry non-default parameters, and byte accounting must not guess
-    them), and ``async_exchange``."""
+    them), ``async_exchange``, the data axis (``shard_samples`` over
+    ``data_shards`` row blocks) and the ``chaos.ChaosSpec`` of a
+    ``-chaos`` name."""
 
     impl: str
     histogram_impl: str = "segment"
@@ -49,6 +51,9 @@ class BackendDescriptor:
     transport: str = "raw"
     transport_spec: Optional[object] = None
     async_exchange: bool = False
+    shard_samples: bool = False
+    data_shards: int = 1
+    chaos: Optional[object] = None
 
     @property
     def is_federated(self) -> bool:

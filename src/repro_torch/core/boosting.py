@@ -240,9 +240,11 @@ def train_fedgbf(
       eval_every: evaluate metrics every k rounds (and at the last).
       tracer: an ``obs.trace.Tracer``; None uses the process-global one.
       device: where to train; None = ``cuda`` (``device.resolve``).
-      round_feature_mask: the federation's party-dropout mask; it comes
-        with ``federation/runtime.py``, so anything but None raises
-        ``NotImplementedError``.
+      round_feature_mask: optional (rounds, d) bool, the federation's
+        party-dropout mask (``federation.runtime.degradation_masks``):
+        row ``m - 1`` is ANDed into round m's per-tree feature masks after
+        they are drawn, so a degraded party's columns leave that round's
+        split search (absolute rounds, also under a window).
       start_round, stop_round: train only the 0-based round window [start,
         stop) of the full schedule (masks, keep counts, segment plan and
         eval gating all follow the full run), so chunks stitch to the
@@ -266,9 +268,13 @@ def train_fedgbf(
             "init_margin must be given exactly when start_round > 0 (it is "
             "the previous chunk's final_margin)")
     if round_feature_mask is not None:
-        raise NotImplementedError(
-            "round_feature_mask (party dropout) comes with the federation "
-            "slice of the port that brings federation/runtime.py")
+        if isinstance(round_feature_mask, torch.Tensor):
+            round_feature_mask = round_feature_mask.cpu().numpy()
+        round_feature_mask = np.asarray(round_feature_mask, bool)
+        if round_feature_mask.shape != (cfg.rounds, x.shape[1]):
+            raise ValueError(
+                f"round_feature_mask shape {round_feature_mask.shape} != "
+                f"(rounds, d) = ({cfg.rounds}, {x.shape[1]})")
     dev = resolve(device)
     if tracer is None:
         tracer = trace_mod.global_tracer()
@@ -306,6 +312,8 @@ def train_fedgbf(
             f"{tuple(masks[0].shape)} and {tuple(masks.feature.shape)}")
     smask_all = masks[0].to(device=dev, dtype=torch.float32)
     fmask_all = masks.feature.to(device=dev, dtype=torch.bool)
+    round_mask = (None if round_feature_mask is None
+                  else torch.from_numpy(round_feature_mask).to(dev))
     goss_round = _goss_counts(cfg, n) if use_goss else None
 
     lr = cfg.learning_rate
@@ -337,8 +345,13 @@ def train_fedgbf(
                 smask = smask_all[s:e]
                 if use_goss:
                     smask = forest_mod.goss_weights(g, smask, *goss_round[m])
+                fmask = fmask_all[s:e]
+                if round_mask is not None:
+                    # party-dropout degradation: the round's surviving
+                    # columns, composed with the drawn masks
+                    fmask = fmask & round_mask[m][None, :]
                 trees, per_tree = bk.build_forest_per_tree(
-                    binned, g, h, smask, fmask_all[s:e], cfg.tree,
+                    binned, g, h, smask, fmask, cfg.tree,
                     root_delta_rows=rdr)
                 y_hat = _boost(y_hat, per_tree, lr)
                 if do_eval[m]:

@@ -31,6 +31,14 @@ Sibling subtraction: the child providers are these providers over the
 kernel's child form (or ``histogram.as_round_child_fn``), so the exchanged
 and metered payload is the left children's, at parent width; every party
 derives the right siblings after the merge (``tree.build_round``).
+
+The data axis (``-sharded``): the providers also take
+``mesh_roles.ShardBlocks``, every (shard, party) block of the padded rows.
+Each (party, shard) histogram is its own ``base_fn`` call (one kernel
+launch) on its row block, and the data axis's ``psum`` is the sum of the
+shard partials in shard order 0..S-1 (``mesh_roles.shard_sum``), before
+the party exchange; leaf statistics and liveness counts are summed the
+same way, and the routing maps are one bitmap per shard.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import torch
 from repro_torch.core import histogram as hist_mod
 from repro_torch.core import split as split_mod
 from repro_torch.core.types import TreeConfig
+from repro_torch.federation import mesh_roles
 
 
 def plain_gather(parts, axis: int) -> torch.Tensor:
@@ -53,9 +62,13 @@ def plain_gather(parts, axis: int) -> torch.Tensor:
 def _local_histograms(base_fn, blocks, g, h, weight, assign, num_nodes,
                       num_bins, kw) -> list:
     """Each party's histogram of its own block: one ``base_fn`` call (one
-    kernel launch on the card) per party."""
-    return [base_fn(block, g, h, weight, assign, num_nodes, num_bins, **kw)
-            for block in blocks]
+    kernel launch on the card) per party and data shard, the shards'
+    partials summed in shard order."""
+    per_shard = [
+        [base_fn(block, g[rows], h[rows], weight[:, rows], assign[:, rows],
+                 num_nodes, num_bins, **kw) for block in shard]
+        for shard, rows in mesh_roles.shard_rows(blocks, g.shape[0])]
+    return [mesh_roles.shard_sum(parts) for parts in zip(*per_shard)]
 
 
 def federated_round_histogram_fn(
@@ -99,12 +112,24 @@ def local_round_histogram_fn(
     return fn
 
 
-def local_round_leaf_fn():
+def local_round_leaf_fn(num_shards: int = 1):
     """Round leaf-statistics provider ((T, n) -> (T, leaves, 2K+1)): a
     local pass of the active party (Alg. 2 step 14), which also serves the
     compaction liveness counts; weights and routing are known to every
-    party, so nothing is exchanged."""
-    return hist_mod.round_leaf_stats
+    party, so nothing is exchanged.  Over ``num_shards`` data shards (the
+    rows padded to a multiple of it) each shard's statistics are its own
+    pass, summed in shard order."""
+    if num_shards == 1:
+        return hist_mod.round_leaf_stats
+
+    def fn(g, h, weight, assign, num_leaves):
+        m = g.shape[0] // num_shards
+        return mesh_roles.shard_sum(
+            hist_mod.round_leaf_stats(g[r], h[r], weight[:, r],
+                                      assign[:, r], num_leaves)
+            for r in (slice(s * m, (s + 1) * m) for s in range(num_shards)))
+
+    return fn
 
 
 def centralized_round_choose_fn(cfg: TreeConfig, num_parties: int,
@@ -150,25 +175,37 @@ def federated_round_route_fn(meter=None):
 
     Each party decides the rows whose node splits on one of its own
     columns (``f_local = f_global - p * d_party``; an unsplit node, -1, has
-    no owner), bit-packs them into a (T, ceil(n/8)) uint8 map (``meter``
-    records one), and the maps are summed over the parties in uint8: every
-    bit has at most one non-zero contributor, so the sum is the OR."""
+    no owner), bit-packs them into a (T, ceil(n/8)) uint8 map, one a data
+    shard over its own rows (``meter`` records party 0's maps, every shard
+    in one record), and each shard's maps are summed over the parties in
+    uint8: every bit has at most one non-zero contributor, so the sum is
+    the OR."""
 
     def fn(blocks, assign, decision):
         node = assign.long()
         f_global = torch.gather(decision.feature, 1, node)     # (T, n)
         thr = torch.gather(decision.threshold, 1, node)
-        maps = []
-        for p, block in enumerate(blocks):
-            n, d_party = block.shape
-            f_local = f_global - p * d_party
-            owned = (f_local >= 0) & (f_local < d_party) & (f_global >= 0)
-            col = f_local.clamp(0, d_party - 1).long()
-            fv = torch.gather(block, 1, col.T).T                # (T, n)
-            maps.append(pack_bits(owned & (fv > thr)))
+        shards = mesh_roles.shard_rows(blocks, assign.shape[1])
+        shard_maps = []
+        for shard, rows in shards:
+            fg, tr = f_global[:, rows], thr[:, rows]
+            maps = []
+            for p, block in enumerate(shard):
+                d_party = block.shape[1]
+                f_local = fg - p * d_party
+                owned = (f_local >= 0) & (f_local < d_party) & (fg >= 0)
+                col = f_local.clamp(0, d_party - 1).long()
+                fv = torch.gather(block, 1, col.T).T            # (T, m)
+                maps.append(pack_bits(owned & (fv > tr)))
+            shard_maps.append(maps)
         if meter is not None:
-            meter.record("id_partition", maps[0])
-        merged = torch.sum(torch.stack(maps), dim=0, dtype=torch.uint8)
-        return assign * 2 + unpack_bits(merged, assign.shape[1])
+            meter.record("id_partition",
+                         torch.stack([maps[0] for maps in shard_maps]))
+        go_right = [
+            unpack_bits(torch.sum(torch.stack(maps), dim=0,
+                                  dtype=torch.uint8), shard[0].shape[0])
+            for (shard, _), maps in zip(shards, shard_maps)]
+        return assign * 2 + (go_right[0] if len(go_right) == 1
+                             else torch.cat(go_right, dim=1))
 
     return fn

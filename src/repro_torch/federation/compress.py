@@ -174,10 +174,20 @@ class MessageMeter:
 
     def __init__(self) -> None:
         self.entries: list = []
+        #: event counters (the chaos transport's injected faults)
+        self.events: dict = {}
 
     def record(self, phase: str, tensor: torch.Tensor) -> None:
-        self.entries.append({"phase": phase, "nbytes": int(tensor.numel())
-                             * tensor.element_size()})
+        self.record_nbytes(phase, int(tensor.numel()) * tensor.element_size())
+
+    def record_nbytes(self, phase: str, nbytes: int) -> None:
+        """Record a payload by its size (the chaos transport's 4-byte
+        checksums)."""
+        self.entries.append({"phase": phase, "nbytes": int(nbytes)})
+
+    def count(self, event: str, k: int = 1) -> None:
+        """Add ``k`` to an event counter."""
+        self.events[event] = self.events.get(event, 0) + k
 
     def phase_totals(self) -> dict:
         out: dict = {}
@@ -195,12 +205,14 @@ class MessageMeter:
 
     def reset(self) -> None:
         self.entries = []
+        self.events = {}
 
 
 def _dry_build(num_parties: int, tree: TreeConfig, n_trees: int,
                n_samples: int, num_features: int, n_channels: int,
                device, **backend_kw) -> MessageMeter:
-    """One forest build of a fresh metered backend on zero inputs."""
+    """One forest build of a fresh metered backend on zero inputs (a
+    sharded backend pads the rows itself, as in a run)."""
     from repro_torch.federation import vfl  # vfl imports this module
 
     meter = MessageMeter()
@@ -228,8 +240,15 @@ def probe_tree_cost(
     async_exchange: bool = False,
     n_channels: int = 1,
     device="cpu",
+    chaos=None,
+    data_shards: int = 0,
 ) -> tuple[dict, int]:
     """ONE tree's per-phase wire bytes, measured by a dry T = 1 build.
+
+    ``chaos`` wraps the exchange in the chaos transport (the ``retries``
+    phase); ``data_shards`` > 0 builds the ``-sharded`` backend over that
+    many row shards (its routing record already covers every shard's
+    bitmap).
 
     Returns (per_tree, grad_per_round): ``per_tree`` maps phase -> bytes
     one sending party ships for one tree (``protocol.PER_PASSIVE_PHASES``
@@ -241,10 +260,20 @@ def probe_tree_cost(
                          "parties")
     meter = _dry_build(num_parties, tree, 1, n_samples, d, n_channels,
                        device, aggregation=aggregation, transport=transport,
-                       async_exchange=async_exchange)
+                       async_exchange=async_exchange, chaos=chaos,
+                       **_shard_kw(data_shards))
     totals = meter.phase_totals()
     grad = totals.pop("grad_broadcast", 0)
     return totals, grad
+
+
+def _shard_kw(data_shards: int) -> dict:
+    """Backend keywords of the ``-sharded`` build over ``data_shards`` row
+    shards; 0 = the unsharded backend."""
+    if data_shards < 0:
+        raise ValueError(f"data_shards must be >= 0, got {data_shards}")
+    return ({"shard_samples": True, "data_shards": data_shards}
+            if data_shards else {})
 
 
 def probe_round_collectives(
@@ -281,25 +310,31 @@ def reconciled_ledger(
     async_exchange: bool = False,
     n_channels: int = 1,
     device="cpu",
+    chaos=None,
+    data_shards: int = 0,
 ):
     """Measured-vs-predicted accounting of a training run in one call: the
     dry probe's per-tree bytes recorded into a ``protocol.ProtocolLedger``
-    built for the same even party dims, ready for ``reconcile()`` /
-    ``breakdown()``.  Pass the backend's own transport
-    (``descriptor.transport_spec``)."""
+    built for the same even party dims (and, for a ``-sharded`` backend,
+    ``data_shards`` > 0 row shards; the chaos transport's ``retries`` with
+    ``chaos``), ready for ``reconcile()`` / ``breakdown()``.  Pass the
+    backend's own transport (``descriptor.transport_spec``)."""
     from repro_torch.federation import protocol
 
     d = num_features if num_features is not None else num_parties * 2
     per_tree, grad = probe_tree_cost(
         num_parties, tree, aggregation=aggregation, transport=transport,
         n_samples=n_samples, num_features=d, async_exchange=async_exchange,
-        n_channels=n_channels, device=device)
+        n_channels=n_channels, device=device, chaos=chaos,
+        data_shards=data_shards)
     spec = protocol.ProtocolSpec(
         n_samples=n_samples, party_dims=(d // num_parties,) * num_parties,
         num_bins=tree.num_bins, max_depth=tree.max_depth,
         aggregation=aggregation, hist_subtraction=tree.hist_subtraction,
-        max_active_nodes=tree.max_active_nodes, n_channels=n_channels)
-    ledger = protocol.ProtocolLedger(spec=spec, cfg=cfg, transport=transport)
+        max_active_nodes=tree.max_active_nodes,
+        data_shards=max(data_shards, 1), n_channels=n_channels)
+    ledger = protocol.ProtocolLedger(spec=spec, cfg=cfg, transport=transport,
+                                     chaos=chaos)
     ledger.record_run(per_tree, grad)
     return ledger
 
@@ -335,9 +370,10 @@ def quantized_round_histogram_fn(
     def fn(blocks, g, h, weight, assign, num_nodes, num_bins, level=0,
            **kw):
         qs, scales = [], []
-        for party, block in enumerate(blocks):
-            local = base_fn(block, g, h, weight, assign, num_nodes, num_bins,
-                            level=level, **kw)
+        locals_ = aggregator._local_histograms(
+            base_fn, blocks, g, h, weight, assign, num_nodes, num_bins,
+            dict(kw, level=level))
+        for party, local in enumerate(locals_):
             payload = local[..., :-1]
             uniform = (draws(level, num_nodes, party, tuple(payload.shape))
                        if transport.stochastic else None)

@@ -10,6 +10,14 @@ columns ``[p * d_party, (p + 1) * d_party)`` of ``binned``
 aggregator.py`` loop over the blocks, so a party's id is its position in
 ``PartyBlocks``.  Party 0 is the active party (the label holder); the
 others are passive.
+
+The JAX package's data axis (``-sharded`` backends) shards the rows over a
+second mesh axis and ``psum``s every per-shard partial.  On the one card
+the ``S`` data shards are contiguous row blocks (``DataLayout``), as the
+parties are column blocks: shard ``s`` holds rows ``[s * m, (s + 1) * m)``
+with ``m = ceil(n / S)`` (the rows pad to ``S * m`` with weight-0 rows),
+and ``ShardBlocks`` holds every (shard, party) block.  Each ``psum`` is a
+sum of the shard partials in shard order 0..S-1.
 """
 
 from __future__ import annotations
@@ -64,6 +72,60 @@ class PartyLayout:
 class PartyBlocks(tuple):
     """The parties' (n, d_party) column blocks, party 0 first: what the
     federated providers take where the centralized ones take ``binned``."""
+
+
+@dataclasses.dataclass(frozen=True)
+class DataLayout:
+    """``num_shards`` even contiguous row blocks (the data axis)."""
+
+    num_shards: int = 1
+
+    def __post_init__(self):
+        if self.num_shards < 1:
+            raise ValueError(f"need >= 1 data shard, got {self.num_shards}")
+
+    def padded_rows(self, n: int) -> int:
+        """``n`` rounded up to a multiple of the shard count."""
+        return -(-n // self.num_shards) * self.num_shards
+
+    def split(self, binned: torch.Tensor,
+              parties: PartyLayout) -> "ShardBlocks":
+        """Every (shard, party) block of ``binned`` (n_pad, d), n_pad a
+        multiple of the shard count, as its own contiguous tensor."""
+        n = binned.shape[0]
+        if n % self.num_shards:
+            raise ValueError(f"{n} rows do not split into "
+                             f"{self.num_shards} shards; pad them first")
+        m = n // self.num_shards
+        return ShardBlocks(tuple(
+            parties.split(binned[s * m:(s + 1) * m])
+            for s in range(self.num_shards)))
+
+
+class ShardBlocks(tuple):
+    """The data shards' ``PartyBlocks``, shard 0 first: each shard's rows
+    split into the parties' column blocks."""
+
+
+def shard_rows(blocks, n: int) -> list:
+    """``[(party_blocks, rows), ...]``, one a data shard in shard order:
+    the shard's ``PartyBlocks`` and its slice of the ``n`` (padded) rows.
+    Unsharded ``PartyBlocks`` are the one shard holding every row."""
+    if not isinstance(blocks, ShardBlocks):
+        return [(blocks, slice(None))]
+    m = n // len(blocks)
+    return [(shard, slice(s * m, (s + 1) * m))
+            for s, shard in enumerate(blocks)]
+
+
+def shard_sum(parts) -> torch.Tensor:
+    """The data axis's ``psum``: the shard partials summed in shard order
+    0..S-1."""
+    parts = list(parts)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
 
 
 def num_parties(layout: PartyLayout) -> int:

@@ -1,8 +1,8 @@
 """Message ledger: exact per-round communication volume of the VFL protocol
 — a copy of ``repro/federation/protocol.py`` (plain arithmetic, no JAX),
 kept here so the port imports no module of the JAX package.  The chaos
-transport's retry model comes with the port's chaos slice: until then the
-``retries`` phase is 0 and a ``chaos`` spec is refused.
+transport's retry model (``wire_retry_bytes``) replays the port's own copy
+of the fault plan (``federation/chaos.py``).
 
 The paper motivates FedGBF by SecureBoost's "high interactive communication
 costs" but never quantifies them; this module does, from first principles, so
@@ -298,15 +298,74 @@ def wire_party_tree_cost(
             k = min(k, d_party * num_bins)
             phases["split_candidates"] += nodes * k * (4 + 4 + 4)
         phases["id_partition"] += id_bytes
-    _refuse_chaos(chaos)
+    if chaos is not None:
+        phases["retries"] = wire_retry_bytes(
+            chaos, d_party, num_bins, max_depth, aggregation, transport,
+            hist_subtraction, max_active_nodes, n_channels,
+        )
     return phases
 
 
-def _refuse_chaos(chaos) -> None:
-    if chaos is not None:
-        raise NotImplementedError(
-            "the chaos transport's retry model comes with the chaos slice "
-            "of the port (federation/chaos.py)")
+def _chaos_slot_bytes(
+    d_party: int,
+    num_bins: int,
+    max_depth: int,
+    aggregation: str = "histogram",
+    transport=None,
+    hist_subtraction: bool = False,
+    max_active_nodes: int = 0,
+    n_channels: int = 1,
+) -> list:
+    """Per-SLOT payload bytes of the chaos-wrapped exchange, in the exact
+    order the forest build makes its gathers: one histogram gather per
+    level (the quantized int payload only — the scale gather is outside
+    the chaos seam), or three candidate gathers (gain, feature, threshold)
+    per level under argmax/top-k."""
+    kind = "raw" if transport is None else transport.kind
+    gh = 2 * n_channels
+    slots = []
+    if aggregation == "histogram":
+        per_node = (num_bins * gh * transport.bits // 8
+                    if kind == "quantized" else num_bins * (gh + 1) * 4)
+        for level in range(max_depth):
+            nodes = _nodes_sent(level, hist_subtraction, max_active_nodes)
+            slots.append(nodes * d_party * per_node)
+    else:  # argmax: three (nodes, k) gathers of 4-byte lanes
+        k = transport.k if kind == "topk" else 1
+        k = min(k, d_party * num_bins)
+        for level in range(max_depth):
+            nodes = _active_nodes(level, max_active_nodes)
+            slots.extend([nodes * k * 4] * 3)
+    return slots
+
+
+def wire_retry_bytes(
+    chaos,
+    d_party: int,
+    num_bins: int,
+    max_depth: int,
+    aggregation: str = "histogram",
+    transport=None,
+    hist_subtraction: bool = False,
+    max_active_nodes: int = 0,
+    n_channels: int = 1,
+) -> int:
+    """Predicted per-tree ``retries`` bytes under a ``chaos.ChaosSpec``:
+    replay the pure fault plan slot by slot and charge 4 checksum bytes per
+    transmission plus the slot payload for every retransmission — the
+    predicted twin of what ``chaos.ChaoticGather`` meters, so the ledger's
+    reconciliation stays exact under injected faults."""
+    from repro_torch.federation.chaos import CHECKSUM_BYTES, plan_for_slot
+
+    slots = _chaos_slot_bytes(d_party, num_bins, max_depth, aggregation,
+                              transport, hist_subtraction, max_active_nodes,
+                              n_channels)
+    total = 0
+    for s, payload in enumerate(slots):
+        fails, final = plan_for_slot(chaos, s)
+        tx = len(fails) + 1 + (1 if final == "dup" else 0)
+        total += tx * CHECKSUM_BYTES + (tx - 1) * payload
+    return total
 
 
 def wire_hist_level_bytes(

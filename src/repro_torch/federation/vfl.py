@@ -16,13 +16,26 @@ builds, bit for bit (the party blocks only partition the feature axis of
 computations that are per feature; the merges keep the centralized
 first-maximum tie-break).
 
-Registry names (the unsharded, fault-free part of the JAX lattice):
-``vfl-histogram[-async][-q8|-q16]`` and ``vfl-argmax[-topk]``.  The
-``-sharded`` (data axis) and ``-chaos`` twins are registered and raise
-``NotImplementedError``: they come with later slices of the port.
+The data axis (``-sharded``): the rows pad to a multiple of the shard
+count with weight-0 rows (after the engine drew its masks over the real
+``n``), split into contiguous row blocks (``mesh_roles.DataLayout``), and
+every (party, shard) histogram is its own launch; the shard partials are
+summed in shard order, and the per-tree predictions are sliced back to
+``n``.  The chaos transport (``-chaos``) wraps the level exchange in
+``chaos.ChaoticGather``; its slot counter restarts at every forest build.
+
+Registry names: the JAX lattice, ``vfl-histogram[-async][-q8|-q16]`` and
+``vfl-argmax[-topk]``, each with its ``-sharded``, ``-chaos`` and
+``-sharded-chaos`` twins (suffix order base -> ``-sharded`` ->
+``-chaos``).
 """
 
 from __future__ import annotations
+
+from functools import partial
+
+import torch
+import torch.nn.functional as F
 
 from repro_torch.core import forest as forest_mod
 from repro_torch.core import tree as tree_mod
@@ -35,6 +48,7 @@ from repro_torch.core.histogram import histogram_dispatch
 from repro_torch.core.types import TreeConfig
 from repro_torch.federation import aggregator, compress, mesh_roles
 from repro_torch.federation import async_exchange as async_mod
+from repro_torch.federation import chaos as chaos_mod
 
 
 def make_vfl_backend(
@@ -45,6 +59,9 @@ def make_vfl_backend(
     meter=None,
     async_exchange: bool = False,
     draws=None,
+    chaos=None,
+    shard_samples: bool = False,
+    data_shards: int = 1,
 ) -> TreeBackend:
     """Construct the vertically federated ``TreeBackend``.
 
@@ -65,6 +82,13 @@ def make_vfl_backend(
         aggregation only); bit-identical, one metered message a level.
       draws: the quantized transport's rounding draws
         (``compress.Draws``); None = ``compress.native_draws(seed)``.
+      chaos: a ``chaos.ChaosSpec``: the level exchange (whatever gather
+        the flags above select) runs through the fault-injecting,
+        checksum-verified chaos transport; the result is bit-identical to
+        the wrapped transport's and ``meter`` gains the ``retries`` phase.
+      shard_samples, data_shards: the data axis — the rows as
+        ``data_shards`` contiguous blocks (``mesh_roles.DataLayout``),
+        one histogram launch per (party, shard).
     """
     cfg = tree
     layout = parties if isinstance(parties, mesh_roles.PartyLayout) else None
@@ -77,6 +101,21 @@ def make_vfl_backend(
         raise ValueError(
             "async_exchange applies to the histogram aggregation only (the "
             "argmax candidate exchange is already small)")
+    if not shard_samples and data_shards != 1:
+        raise ValueError(
+            f"data_shards={data_shards} needs a -sharded backend (the data "
+            "axis); the unsharded names hold every row in one block")
+    data_layout = mesh_roles.DataLayout(data_shards)
+
+    # ONE chaos wrapper per backend over the base gather the flags select;
+    # the forest builders restart its slot counter at every entry
+    chaos_gather = None
+    if chaos is not None:
+        base_gather = (partial(async_mod.double_buffered_gather,
+                               split_axis=-2)
+                       if async_exchange else aggregator.plain_gather)
+        chaos_gather = chaos_mod.ChaoticGather(chaos, base_gather,
+                                               num_parties, meter=meter)
 
     direct = histogram_dispatch("cuda-fused-round")
     child = histogram_dispatch("cuda-fused-round-child")
@@ -85,7 +124,17 @@ def make_vfl_backend(
             raise ValueError(
                 f"transport {transport.kind!r} does not apply to the "
                 "histogram aggregation (use 'raw' or 'quantized')")
-        if async_exchange:
+        if chaos_gather is not None:
+            # the same providers, with the chaos gather at the seam
+            if transport.kind == "quantized":
+                hist_fn, child_fn = (compress.quantized_round_histogram_fn(
+                    transport, meter, base, gather=chaos_gather, draws=draws)
+                    for base in (direct, child))
+            else:
+                hist_fn, child_fn = (aggregator.federated_round_histogram_fn(
+                    base, meter, gather=chaos_gather)
+                    for base in (direct, child))
+        elif async_exchange:
             hist_fn, child_fn = (async_mod.async_round_histogram_fn(
                 transport, meter, base, draws) for base in (direct, child))
         elif transport.kind == "quantized":
@@ -105,7 +154,8 @@ def make_vfl_backend(
         hist_fn, child_fn = (aggregator.local_round_histogram_fn(base)
                              for base in (direct, child))
         k = transport.k if transport.kind == "topk" else 1
-        choose_fn = compress.topk_round_choose_fn(cfg, k, num_parties, meter)
+        choose_fn = compress.topk_round_choose_fn(cfg, k, num_parties, meter,
+                                                  gather=chaos_gather)
     else:
         raise ValueError(f"unknown aggregation {aggregation!r}")
 
@@ -114,6 +164,10 @@ def make_vfl_backend(
         impl += "-async"
     if transport.kind != "raw":
         impl += f"-{transport.tag}"
+    if shard_samples:
+        impl += "-sharded"
+    if chaos is not None:
+        impl += "-chaos"
     descriptor = BackendDescriptor(
         impl=impl,
         histogram_impl="cuda",
@@ -122,6 +176,9 @@ def make_vfl_backend(
         transport=transport.tag,
         transport_spec=None if transport.kind == "raw" else transport,
         async_exchange=async_exchange,
+        shard_samples=shard_samples,
+        data_shards=data_shards,
+        chaos=chaos,
     )
     inner = TreeBackend(
         descriptor=descriptor,
@@ -129,12 +186,14 @@ def make_vfl_backend(
         round_child_histogram_fn=child_fn,
         round_choose_fn=choose_fn,
         round_route_fn=aggregator.federated_round_route_fn(meter),
-        round_leaf_fn=aggregator.local_round_leaf_fn(),
+        round_leaf_fn=aggregator.local_round_leaf_fn(data_shards),
     )
 
-    def _blocks(binned, g, h, _cfg) -> mesh_roles.PartyBlocks:
-        """Refuse a differing tree config or an uneven split, meter the
-        round's (g, h) broadcast (the real n rows), split the columns."""
+    def _blocks(binned, g, h, sample_mask, _cfg):
+        """Refuse a differing tree config or an uneven split, restart the
+        chaos slots, meter the round's (g, h) broadcast (the real n rows),
+        pad the rows for the data shards (weight 0) and split the blocks.
+        Returns (blocks, g, h, sample_mask)."""
         if _cfg is not None and _cfg != cfg:
             raise ValueError(
                 f"backend {descriptor.impl!r} was built with {cfg}, but the "
@@ -148,18 +207,33 @@ def make_vfl_backend(
         if layout is not None and d != layout.num_features:
             raise ValueError(f"binned has {d} columns, the layout "
                              f"{layout.num_features}")
+        if chaos_gather is not None:
+            chaos_gather.begin_trace()
         if meter is not None:
             # the per-round (g, h) broadcast active -> each passive party
             meter.record("grad_broadcast", g)
             meter.record("grad_broadcast", h)
-        return mesh_roles.PartyLayout(num_parties, d).split(binned)
+        parties = mesh_roles.PartyLayout(num_parties, d)
+        if not shard_samples:
+            return parties.split(binned), g, h, sample_mask
+        # the pad comes after the engine drew its masks over the real n:
+        # padded rows carry weight 0, so every histogram, leaf statistic,
+        # liveness count and root delta ignores them
+        pad = data_layout.padded_rows(binned.shape[0]) - binned.shape[0]
+        rows = (0, 0) * (g.dim() - 1) + (0, pad)
+        binned, g, h = (F.pad(binned, (0, 0, 0, pad)), F.pad(g, rows),
+                        F.pad(h, rows))
+        sample_mask = F.pad(sample_mask.to(torch.float32), (0, pad))
+        return data_layout.split(binned, parties), g, h, sample_mask
 
     def forest_builder_per_tree(binned, g, h, sample_mask, feature_mask,
                                 _cfg=None, root_delta_rows=0):
-        blocks = _blocks(binned, g, h, _cfg)
-        return forest_mod.build_forest_per_tree(
+        n = binned.shape[0]
+        blocks, g, h, sample_mask = _blocks(binned, g, h, sample_mask, _cfg)
+        trees, per_tree = forest_mod.build_forest_per_tree(
             blocks, g, h, sample_mask, feature_mask, cfg, backend=inner,
             root_delta_rows=root_delta_rows)
+        return trees, per_tree[:, :n]
 
     def forest_builder(binned, g, h, sample_mask, feature_mask, _cfg=None,
                        root_delta_rows=0):
@@ -177,7 +251,8 @@ def make_vfl_backend(
 
 
 def _vfl_factory(aggregation: str, transport=None,
-                 async_exchange: bool = False):
+                 async_exchange: bool = False, shard_samples: bool = False,
+                 chaos_enabled: bool = False):
     def factory(tree=None, num_parties: int = 2, **kw):
         if tree is None:
             raise ValueError(
@@ -190,22 +265,20 @@ def _vfl_factory(aggregation: str, transport=None,
                 f"backend name encodes transport {transport.tag!r} but "
                 f"transport= {explicit!r} was passed; drop the kwarg or use "
                 "the matching registry name")
+        chaos = kw.pop("chaos", None)
+        if chaos_enabled:
+            # a -chaos name with no spec runs the zero-fault one: checksums
+            # verified, no fault injected
+            chaos = chaos if chaos is not None else chaos_mod.ChaosSpec()
+        elif chaos is not None:
+            raise ValueError(
+                "chaos= was passed to a non-chaos backend name; use the "
+                "matching '-chaos' registry name")
         return make_vfl_backend(
             num_parties, tree, aggregation=aggregation,
             transport=transport if transport is not None else explicit,
-            async_exchange=async_exchange, **kw)
-
-    return factory
-
-
-def _later_slice_factory(name: str):
-    part = ("the data axis (-sharded)" if "-sharded" in name
-            else "the chaos transport (-chaos)")
-
-    def factory(**_kw):
-        raise NotImplementedError(
-            f"backend {name!r}: {part} comes with a later slice of the "
-            "port; this slice has the unsharded, fault-free vfl-* names")
+            async_exchange=async_exchange, chaos=chaos,
+            shard_samples=shard_samples, **kw)
 
     return factory
 
@@ -218,7 +291,9 @@ for _agg, _variants in _TRANSPORTS.items():
     for _suffix, _transport in _variants:
         for _async in ((False, True) if _agg == "histogram" else (False,)):
             _name = f"vfl-{_agg}" + ("-async" if _async else "") + _suffix
-            register_backend(_name, _vfl_factory(_agg, _transport, _async))
-            for _twin in ("-chaos", "-sharded", "-sharded-chaos"):
-                register_backend(_name + _twin,
-                                 _later_slice_factory(_name + _twin))
+            for _shard, _sname in ((False, _name), (True, _name + "-sharded")):
+                for _chaos, _cname in ((False, _sname),
+                                       (True, _sname + "-chaos")):
+                    register_backend(_cname, _vfl_factory(
+                        _agg, _transport, _async, shard_samples=_shard,
+                        chaos_enabled=_chaos))

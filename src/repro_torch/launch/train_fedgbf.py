@@ -33,15 +33,28 @@ written on the card resumes on the CPU and the reverse: the fingerprint
 leaves out ``--device`` and ``--backend``.
 
 Federated backends (``vfl-histogram[-async][-q8|-q16]``,
-``vfl-argmax[-topk]``): the features are padded with constant columns
-(``tabular.pad_features``) until ``--parties`` divides them, the masks are
-drawn for the padded width, and the run prints the JAX launcher's lines:
-the backend and its transport, the Paillier-model estimate and the
-measured wire bytes against the wire model's (``match=``), from the port's
-dry probe (``compress.reconciled_ledger``).  The port has one training
-engine, with the JAX scan engine's contract: ``--engine scan``; ``loop``
-is refused.  ``--data-shards``, party dropout and the chaos flags come
-with their modules in a later slice.
+``vfl-argmax[-topk]``, each with its ``-sharded`` / ``-chaos`` twins): the
+features are padded with constant columns (``tabular.pad_features``) until
+``--parties`` divides them, the masks are drawn for the padded width, and
+the run prints the JAX launcher's lines: the backend and its transport,
+the Paillier-model estimate and the measured wire bytes against the wire
+model's (``match=``), from the port's dry probe
+(``compress.reconciled_ledger``).  The port has one training engine, with
+the JAX scan engine's contract: ``--engine scan``; ``loop`` is refused.
+
+    # the data axis: 2 row shards on the one card (a -sharded name)
+    ... --backend vfl-histogram-sharded --parties 4 --data-shards 2
+    # chaos transport: rates > 0 select the -chaos twin (bit-identical
+    # trees; the retransmissions show in the ledger's retries phase)
+    ... --backend vfl-histogram --chaos-drop 0.05 --chaos-corrupt 0.02
+    # party dropout: degraded (round, party) cells leave the split search;
+    # the degraded parties also fit gradient-less local trees
+    ... --backend vfl-histogram --party-dropout 0.5 --retry-max 0 \
+        --dropout-fallback gradientless
+
+``--data-shards 0`` is one shard; the shards are row blocks of the one
+card, so a count above 1 needs a ``-sharded`` backend and is refused on
+any other.
 """
 
 from __future__ import annotations
@@ -68,7 +81,9 @@ from repro_torch.core.types import (
 )
 from repro_torch.data import synthetic, tabular
 from repro_torch.device import resolve
-from repro_torch.federation import compress
+from repro_torch.federation import chaos as chaos_mod
+from repro_torch.federation import compress, gradientless
+from repro_torch.federation import runtime as runtime_mod
 from repro_torch.obs import log as obs_log
 from repro_torch.obs import perfetto
 from repro_torch.obs import trace as obs_trace
@@ -130,12 +145,17 @@ def _fingerprint(args, cfg, parties=None) -> str:
     """The configuration a train state belongs to: everything that decides
     the trees, nothing that decides only where they are built (``--device``
     and ``--backend`` are left out).  A federated run adds its party count,
-    which decides the padded width and so the masks."""
+    which decides the padded width and so the masks; party dropout adds its
+    schedule's parameters."""
     masks_sha = None
     if args.masks:
         with open(args.masks, "rb") as f:
             masks_sha = hashlib.sha256(f.read()).hexdigest()
     extra = {} if parties is None else {"parties": parties}
+    if args.party_dropout > 0:
+        extra.update(party_dropout=args.party_dropout,
+                     dropout_seed=args.dropout_seed,
+                     retry_max=args.retry_max)
     return json.dumps({
         **extra,
         "dataset": args.dataset, "model": args.model, "rounds": cfg.rounds,
@@ -167,6 +187,12 @@ def main(argv=None) -> None:
                          "the parties as column blocks (kernel per party)")
     ap.add_argument("--parties", type=int, default=2,
                     help="party count for vfl-* backends")
+    ap.add_argument("--data-shards", type=int, default=0,
+                    help="row shards of a vfl-*-sharded backend: contiguous "
+                         "row blocks on the one card, one histogram launch "
+                         "per party and shard, the partials summed in shard "
+                         "order; uneven n pads with weight-0 rows inside "
+                         "the backend.  0 = 1")
     ap.add_argument("--engine", default="scan", choices=("scan", "loop"),
                     help="training engine: the port has one, with the JAX "
                          "scan engine's contract; 'loop' is refused")
@@ -196,6 +222,38 @@ def main(argv=None) -> None:
     ap.add_argument("--log-json", action="store_true",
                     help="one structured JSON line per round instead of "
                          "the [round NNN] prints")
+    ap.add_argument("--chaos-drop", type=float, default=0.0,
+                    help="chaos transport: probability a level-exchange "
+                         "transmission attempt is dropped (detected by "
+                         "checksum and retransmitted; trees unchanged)")
+    ap.add_argument("--chaos-corrupt", type=float, default=0.0,
+                    help="chaos transport: probability an attempt has one "
+                         "bit flipped in flight")
+    ap.add_argument("--chaos-dup", type=float, default=0.0,
+                    help="chaos transport: probability the final delivery "
+                         "is duplicated")
+    ap.add_argument("--chaos-delay", type=float, default=0.0,
+                    help="chaos transport: probability the final delivery "
+                         "is delayed (an event only)")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed of the chaos fault plan")
+    ap.add_argument("--chaos-max-retries", type=int, default=3,
+                    help="retransmission budget per exchange slot")
+    ap.add_argument("--party-dropout", type=float, default=0.0,
+                    help="probability a party misses a coordinator poll; a "
+                         "party missing 1 + --retry-max polls is degraded "
+                         "for the round (its columns leave the split "
+                         "search)")
+    ap.add_argument("--dropout-seed", type=int, default=0,
+                    help="seed of the party-availability draw")
+    ap.add_argument("--retry-max", type=int, default=3,
+                    help="coordinator re-polls (exponential backoff, "
+                         "simulated) before degrading a silent party")
+    ap.add_argument("--dropout-fallback", default="none",
+                    choices=("none", "gradientless"),
+                    help="gradientless: every party degraded in >= 1 round "
+                         "also fits party-local gradient-less trees, whose "
+                         "margins are added at test evaluation")
     ap.add_argument("--checkpoint", default=None, metavar="PATH",
                     help="train-state checkpoint path (atomic npz + sha256 "
                          "sidecar); every chunk's end writes here")
@@ -228,25 +286,64 @@ def main(argv=None) -> None:
         cfg = dataclasses.replace(cfg, loss=args.loss)
     obj = objective_mod.get_objective(cfg.loss)
 
-    federated = args.backend.startswith("vfl")
+    # chaos transport: rates > 0 select the -chaos twin of the backend; a
+    # -chaos name with no rates runs the zero-fault spec (checksums only)
+    backend_name = args.backend
+    chaos_rates = (args.chaos_drop, args.chaos_corrupt, args.chaos_dup,
+                   args.chaos_delay)
+    if any(r > 0 for r in chaos_rates) and not backend_name.endswith(
+            "-chaos"):
+        backend_name += "-chaos"
+    federated = backend_name.startswith("vfl")
+    chaos = None
+    if backend_name.endswith("-chaos"):
+        if not federated:
+            raise SystemExit(
+                f"chaos transport needs a vfl-* backend, got {args.backend!r}")
+        chaos = chaos_mod.ChaosSpec(
+            drop=args.chaos_drop, corrupt=args.chaos_corrupt,
+            dup=args.chaos_dup, delay=args.chaos_delay,
+            seed=args.chaos_seed, max_retries=args.chaos_max_retries)
+        print(f"chaos transport: {chaos.tag} (faults are injected, detected "
+              "by checksum and retransmitted — results stay bit-identical)")
+    sharded = "-sharded" in backend_name
+    if args.data_shards < 0:
+        raise SystemExit(f"--data-shards must be >= 0, got "
+                         f"{args.data_shards}")
+    shards = args.data_shards or 1
+    if shards > 1 and not sharded:
+        raise SystemExit(
+            f"--data-shards {shards}: the data shards are row blocks of "
+            f"one card and need a -sharded backend (e.g. "
+            f"{backend_name.replace('-chaos', '')}-sharded), not "
+            f"{backend_name!r}")
     x_train, x_test = np.asarray(ds.x_train), np.asarray(ds.x_test)
     ledger = None
+    aggregation = None
     if federated:
         x_train, d_pad = tabular.pad_features(x_train, args.parties)
         x_test, _ = tabular.pad_features(x_test, args.parties)
-        backend = backend_mod.get_backend(args.backend, tree=tree,
-                                          num_parties=args.parties)
+        if sharded and x_train.shape[0] % shards:
+            print(f"sharded backend: n={x_train.shape[0]} pads to "
+                  f"{-(-x_train.shape[0] // shards) * shards} inside the "
+                  f"backend ({shards} sample shards, weight-0 rows)")
+        bk_kw = {"chaos": chaos} if chaos is not None else {}
+        if sharded:
+            bk_kw["data_shards"] = shards
+        backend = backend_mod.get_backend(backend_name, tree=tree,
+                                          num_parties=args.parties, **bk_kw)
         desc = backend.descriptor
         aggregation = "argmax" if "argmax" in desc.impl else "histogram"
-        print(f"backend={backend.name}: {args.parties} parties x 1 data "
-              f"shards, aggregation={aggregation}, "
+        print(f"backend={backend.name}: {args.parties} parties x {shards} "
+              f"data shards, aggregation={aggregation}, "
               f"transport={desc.transport}"
               + (", async exchange" if desc.async_exchange else ""))
         ledger = compress.reconciled_ledger(
             args.parties, tree, cfg, aggregation=aggregation,
             transport=desc.transport_spec, n_samples=x_train.shape[0],
             num_features=d_pad, async_exchange=desc.async_exchange,
-            n_channels=obj.n_classes)
+            n_channels=obj.n_classes, chaos=chaos,
+            data_shards=shards if sharded else 0)
         cost = ledger.predicted_paillier()
         print(f"paillier-model bytes (ledger): {cost.total/1e6:.1f} MB "
               f"{cost.breakdown()}")
@@ -255,8 +352,23 @@ def main(argv=None) -> None:
               f"predicted={rec['total']['predicted']/1e6:.1f} MB "
               f"(match={rec['total']['match']})")
     else:
-        backend = args.backend
+        backend = backend_name
     n, d = x_train.shape
+
+    # party dropout: the degraded (round, party) cells' columns leave the
+    # round's split search
+    dropout_sched = None
+    round_mask = None
+    if args.party_dropout > 0:
+        dropout_sched = runtime_mod.dropout_schedule(
+            args.party_dropout, cfg.rounds, args.parties,
+            seed=args.dropout_seed,
+            policy=runtime_mod.RetryPolicy(max_retries=args.retry_max))
+        round_mask = runtime_mod.degradation_masks(
+            dropout_sched.degraded, d, args.parties)
+        print(f"party-dropout: {dropout_sched.degraded_rounds}/{cfg.rounds} "
+              f"degraded rounds, {int(dropout_sched.retries.sum())} retries, "
+              f"simulated backoff {dropout_sched.backoff_s:.2f}s")
     if args.masks:
         masks = _load_masks(args.masks, cfg.sampling, device)
     else:  # the whole schedule's draws, so a resumed run replays them
@@ -264,7 +376,7 @@ def main(argv=None) -> None:
                                            torch.Generator().manual_seed(0))
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
-    print(f"backend={args.backend} on {where}: {n} x {d} rows, "
+    print(f"backend={backend_name} on {where}: {n} x {d} rows, "
           f"sampling={cfg.sampling}, masks "
           f"{'from ' + args.masks if args.masks else 'drawn from seed 0'}")
 
@@ -299,8 +411,8 @@ def main(argv=None) -> None:
         model_c, hist_c = boosting.train_fedgbf(
             x_train, ds.y_train, cfg, masks, backend=backend,
             eval_every=args.eval_every, verbose=not args.log_json,
-            tracer=tracer, device=device, start_round=a, stop_round=b,
-            init_margin=margin_carry)
+            tracer=tracer, device=device, round_feature_mask=round_mask,
+            start_round=a, stop_round=b, init_margin=margin_carry)
         models.append(model_c)
         hists.append(hist_c)
         margin_carry = hist_c.final_margin
@@ -323,20 +435,51 @@ def main(argv=None) -> None:
         # the ledger's rows cover the full schedule: clip to this window
         per_round_bytes = ledger.per_round_measured()[
             start:start + len(hist.n_trees)]
+    faults = None
+    if (args.log_json or args.trace) and (chaos is not None
+                                          or dropout_sched is not None):
+        faults = [dict() for _ in range(len(hist.n_trees))]
+        if chaos is not None:
+            plan = chaos_mod.plan_summary(
+                chaos, chaos_mod.n_slots_per_tree(aggregation,
+                                                  args.max_depth))
+            for r in faults:  # every round makes the same slots
+                for key in ("faults_injected", "retries", "dropped",
+                            "corrupted"):
+                    r[key] = plan[key]
+        if dropout_sched is not None:
+            for i, r in enumerate(faults):
+                summary = dropout_sched.round_summary(start + i)
+                r["retries"] = r.get("retries", 0) + summary["retries"]
+                r["degraded_parties"] = summary["degraded_parties"]
     if args.log_json:
-        for line in obs_log.render_round_lines(hist, per_round_bytes):
+        for line in obs_log.render_round_lines(hist, per_round_bytes,
+                                               faults):
             print(line)
     if args.trace:
-        perfetto.add_training_timeline(tracer, hist, per_round_bytes)
+        perfetto.add_training_timeline(tracer, hist, per_round_bytes, faults)
         n_events = perfetto.export_chrome_trace(
             args.trace, tracer,
-            metadata={"dataset": args.dataset, "backend": args.backend,
+            metadata={"dataset": args.dataset, "backend": backend_name,
                       "engine": hist.engine, "rounds": args.rounds})
         print(f"trace: {n_events} events -> {args.trace}")
     packed = pack_ensemble(model)
     x_test = torch.as_tensor(x_test, device=device)
     y_test = torch.as_tensor(np.asarray(ds.y_test), device=device)
     margin = boosting.predict(packed, x_test)
+    if args.dropout_fallback == "gradientless" and dropout_sched is not None:
+        # every party degraded in >= 1 round also fits party-local
+        # gradient-less trees; their contributions (margin minus base) add
+        # onto the ensemble's test margin
+        for p in runtime_mod.degraded_parties(dropout_sched):
+            sl = runtime_mod.party_column_slice(p, d, args.parties)
+            gl_model, _ = gradientless.train_gradientless(
+                x_train[:, sl], ds.y_train, cfg, num_parties=1,
+                device=device, seed=1000 + p)
+            margin = margin + (boosting.predict(gl_model, x_test[:, sl])
+                               - gl_model.base_score)
+            print(f"gradientless fallback: party {p} "
+                  f"({gl_model.total_trees} local trees) added to margin")
     if obj.n_classes > 1:
         rep = metrics.multiclass_report(y_test, margin)
         print(f"TEST: acc={rep['acc']:.4f} macro_f1={rep['macro_f1']:.4f} "

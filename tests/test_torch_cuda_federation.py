@@ -50,3 +50,69 @@ def test_vfl_four_parties_on_card_equal_local_cuda(device, name):
         for f in ("feature", "threshold", "gain", "leaf_weight"):
             assert torch.equal(getattr(a, f), getattr(b, f)), f
     assert np.array_equal(hist.final_margin, local_h.final_margin)
+
+
+@pytest.mark.cuda
+def test_vfl_runtime_on_card_equal_oracles(device):
+    """``chip_smoke.py`` phase 4e's equalities at 2,000 rows and 3 rounds:
+    the chaos twin == the fault-free run; the party-dropout run == the
+    masked ``local-cuda`` run; the gradient-less fallback launches once a
+    party a level and its ledger is exact; the 2-shard run launches once a
+    party and shard a level and equals the same run on CPU tensors."""
+    from repro_torch.core import backend as backend_mod
+    from repro_torch.core import boosting, forest
+    from repro_torch.data import synthetic, tabular
+    from repro_torch.federation import chaos, compress, gradientless, runtime
+    from repro_torch.kernels.histogram import ops
+
+    parties = 4
+    ds = synthetic.load("default_credit_card", n=2000)
+    x, d = tabular.pad_features(np.asarray(ds.x_train), parties)
+    cfg = boosting.dynamic_fedgbf_config(rounds=3)
+    levels = cfg.tree.max_depth * cfg.rounds
+    masks = forest.draw_step_masks(cfg, x.shape[0], d,
+                                   torch.Generator().manual_seed(0))
+
+    def train(name, dev=device, **kw):
+        bk = kw.pop("backend", None) or backend_mod.get_backend(
+            name, tree=cfg.tree, num_parties=parties, **kw.pop("bk", {}))
+        ops.reset_launches()
+        model, hist = boosting.train_fedgbf(x, ds.y_train, cfg, masks,
+                                            backend=bk, device=dev, **kw)
+        if dev == device:
+            torch.cuda.synchronize()
+        return model, hist, ops.kernel_launches("histogram_round")
+
+    def same(a, b):
+        (ma, ha, _), (mb, hb, _) = a, b
+        return (all(torch.equal(getattr(fa, f).cpu(), getattr(fb, f).cpu())
+                    for fa, fb in zip(ma.forests, mb.forests)
+                    for f in ("feature", "threshold", "gain", "leaf_weight"))
+                and np.array_equal(ha.final_margin, hb.final_margin))
+
+    base = train("vfl-histogram")
+    faulty = train("vfl-histogram-chaos", bk={"chaos": chaos.ChaosSpec(
+        drop=0.3, corrupt=0.2, dup=0.2, seed=3)})
+    assert faulty[2] == parties * levels and same(faulty, base)
+
+    sched = runtime.dropout_schedule(0.4, cfg.rounds, parties, seed=2,
+                                     policy=runtime.RetryPolicy(
+                                         max_retries=0))
+    rmask = runtime.degradation_masks(sched.degraded, d, parties)
+    assert rmask is not None and not rmask.all()
+    assert same(train("vfl-histogram", round_feature_mask=rmask),
+                train(None, backend="local-cuda", round_feature_mask=rmask))
+
+    meter = compress.MessageMeter()
+    ops.reset_launches()
+    _, info = gradientless.train_gradientless(x, ds.y_train, cfg, parties,
+                                              meter=meter, device=device)
+    assert ops.kernel_launches("histogram_round") == parties * levels
+    want = gradientless.wire_cost(x.shape[0], info["tree_counts"])
+    assert meter.phase_totals() == {k: v for k, v in want.items()
+                                    if v and k != "total"}
+
+    sharded = train("vfl-histogram-sharded", bk={"data_shards": 2})
+    assert sharded[2] == 2 * parties * levels
+    assert same(sharded, train("vfl-histogram-sharded", dev="cpu",
+                               bk={"data_shards": 2}))

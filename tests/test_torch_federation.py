@@ -48,6 +48,7 @@ from repro_torch.core import boosting as t_boosting
 from repro_torch.core.types import TreeConfig as TTreeConfig
 from repro_torch.data import synthetic as t_synthetic
 from repro_torch.federation import aggregator as t_aggregator
+from repro_torch.federation import chaos as t_chaos
 from repro_torch.federation import compress as t_compress
 from repro_torch.federation import mesh_roles, vfl
 from repro_torch.launch import train_fedgbf as t_launch
@@ -347,13 +348,18 @@ def test_party_layout_and_blocks():
 
 
 def test_refusals():
-    """-sharded / -chaos names, an uneven d, a differing tree config, a
+    """``chaos=`` on a name without ``-chaos``, row shards on a name
+    without ``-sharded``, an uneven d, a differing tree config, a
     transport the aggregation cannot carry, and ``--engine loop``."""
     for name in ("vfl-histogram-sharded", "vfl-argmax-chaos",
                  "vfl-histogram-async-q8-sharded-chaos"):
         assert name in t_backend.available_backends()
-        with pytest.raises(NotImplementedError, match="later slice"):
-            t_backend.get_backend(name, tree=TREE)
+        assert t_backend.get_backend(name, tree=TREE).name == name
+    with pytest.raises(ValueError, match="non-chaos"):
+        t_backend.get_backend("vfl-histogram-sharded", tree=TREE,
+                              chaos=t_chaos.ChaosSpec())
+    with pytest.raises(ValueError, match="-sharded backend"):
+        t_backend.get_backend("vfl-argmax-chaos", tree=TREE, data_shards=2)
     x, y = small_data()
     cfg = small_config()
     with pytest.raises(ValueError, match="shard evenly"):

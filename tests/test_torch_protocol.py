@@ -19,11 +19,13 @@ import numpy as np
 import pytest
 
 from repro.core import types as j_types
+from repro.federation import chaos as j_chaos
 from repro.federation import compress as j_compress
 from repro.federation import protocol as j_protocol
 from repro_torch.core import backend as t_backend
 from repro_torch.core import boosting as t_boosting
 from repro_torch.core.types import TreeConfig as TTreeConfig
+from repro_torch.federation import chaos as t_chaos
 from repro_torch.federation import compress as t_compress
 from repro_torch.data import synthetic as t_synthetic
 from repro_torch.federation import protocol as t_protocol
@@ -110,7 +112,8 @@ def test_round_collective_counts(parties, n_trees, transport):
 
 def test_wire_model_equals_jax():
     """The copied wire and Paillier models agree with the JAX ones on
-    compaction, shards and K (plain arithmetic, no probe)."""
+    compaction, shards, K and chaos retries (plain arithmetic, no
+    probe)."""
     for agg in ("histogram", "argmax"):
         for mx in (0, 2):
             kw = dict(n_samples=1001, party_dims=(3, 3, 3), num_bins=32,
@@ -129,8 +132,14 @@ def test_wire_model_equals_jax():
                     j_protocol.run_cost(j_protocol.ProtocolSpec(**kw),
                                         j_cfg)))
     assert isinstance(j_cfg, j_types.FedGBFConfig)
-    with pytest.raises(NotImplementedError, match="chaos"):
-        t_protocol.wire_party_tree_cost(100, 2, 32, 3, chaos=object())
+    for agg, t_tr, j_tr in (("histogram", t_compress.Q8, j_compress.Q8),
+                            ("argmax", t_compress.TOPK, j_compress.TOPK)):
+        t_spec = t_chaos.ChaosSpec(drop=0.2, corrupt=0.1, dup=0.1, seed=5)
+        j_spec = j_chaos.ChaosSpec(drop=0.2, corrupt=0.1, dup=0.1, seed=5)
+        assert t_protocol.wire_party_tree_cost(
+            100, 2, 32, 3, agg, t_tr, chaos=t_spec) == \
+            j_protocol.wire_party_tree_cost(100, 2, 32, 3, agg, j_tr,
+                                            chaos=j_spec)
     with pytest.raises(ValueError, match="bits"):
         t_compress.TransportSpec(kind="quantized", bits=4)
     assert [t.tag for t in (t_compress.RAW, t_compress.Q8, t_compress.Q16,

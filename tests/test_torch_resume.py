@@ -182,8 +182,8 @@ def test_train_state_and_pytree_roundtrip_both_ways(tmp_path):
 
 
 def test_resume_argument_validation():
-    """The JAX package's ``ValueError``s (``test_fault.py:191-199``);
-    ``round_feature_mask`` stays the federation slice's."""
+    """The JAX package's ``ValueError``s (``test_fault.py:191-199``), and
+    its ``round_feature_mask`` shape check (``boosting.py:177-183``)."""
     ds = t_synthetic.load("default_credit_card", n=64)
     cfg = t_boosting.secureboost_config(rounds=4)
 
@@ -201,8 +201,8 @@ def test_resume_argument_validation():
         t_boosting.train_fedgbf(ds.x_train, ds.y_train,
                                 dataclasses.replace(cfg, sampling="top"),
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="federation slice"):
-        train(round_feature_mask=np.ones((4, ds.x_train.shape[1]), bool))
+    with pytest.raises(ValueError, match="round_feature_mask shape"):
+        train(round_feature_mask=np.ones((3, ds.x_train.shape[1]), bool))
 
 
 def test_launcher_kill_and_resume(tmp_path, capsys):

@@ -145,8 +145,8 @@ def test_native_sampler_keep_counts():
 
 
 def test_unported_options_and_no_fallback():
-    """Party dropout waits for the federation slice; GOSS takes GOSS
-    draws, not sample masks; wrong shapes and a missing card raise."""
+    """A party-dropout mask of the wrong shape; GOSS takes GOSS draws,
+    not sample masks; wrong shapes and a missing card raise."""
     ds = t_synthetic.load("default_credit_card", n=300)
     cfg = t_boosting.dynamic_fedgbf_config(rounds=2)
     uniform = t_forest.draw_step_masks(cfg, 210, 23,
@@ -155,9 +155,9 @@ def test_unported_options_and_no_fallback():
         t_boosting.train_fedgbf(ds.x_train, ds.y_train,
                                 dataclasses.replace(cfg, sampling="goss"),
                                 uniform, device="cpu")
-    with pytest.raises(NotImplementedError, match="federation"):
+    with pytest.raises(ValueError, match="round_feature_mask shape"):
         t_boosting.train_fedgbf(ds.x_train, ds.y_train, cfg, device="cpu",
-                                round_feature_mask=np.ones((2, 23), bool))
+                                round_feature_mask=np.ones((2, 22), bool))
     bad = t_forest.StepMasks(torch.ones(3, 210), torch.ones(3, 23,
                                                             dtype=bool))
     with pytest.raises(ValueError, match="scheduled builds"):

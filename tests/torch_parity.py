@@ -76,11 +76,11 @@ def hard_rows(rng, n, bin_edges):
     return x
 
 
-def jax_step_masks(cfg, n, d, seed=0):
+def jax_step_masks(cfg, n, d, seed=0, key=None):
     """The masks of every scheduled tree build as the JAX scan engine draws
     them up front (``boosting.py:576-591``): one split of ``PRNGKey(seed)``
-    per round, one ``fold_in`` per tree slot, exact-count permutation
-    masks.  Returns numpy (S, n) float32 and (S, d) bool."""
+    (or of ``key``) per round, one ``fold_in`` per tree slot, exact-count
+    permutation masks.  Returns numpy (S, n) float32 and (S, d) bool."""
     import jax
     import jax.numpy as jnp
 
@@ -88,7 +88,7 @@ def jax_step_masks(cfg, n, d, seed=0):
     from repro.core import forest as forest_mod
 
     _, flat = dynamic.flat_schedule(cfg)
-    rng = jax.random.PRNGKey(seed)
+    rng = jax.random.PRNGKey(seed) if key is None else key
     round_keys = []
     for _ in range(cfg.rounds):
         rng, k_round = jax.random.split(rng)
