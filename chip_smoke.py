@@ -4,7 +4,9 @@ serving (f32 and int8/int16 quantized) through the ensemble-traversal
 kernels, then training (uniform and GOSS sampling, kill and resume, and
 vertically federated with 4 parties: raw, quantized, under the chaos
 transport, with party dropout and the gradient-less fallback, and over 2
-row shards) through the histogram kernel.
+row shards) through the histogram kernel; then the LM substrate (no
+kernel of its own): SmolLM-135M trained and served at full width, and
+every architecture's smoke config against the JAX package's logits.
 
     python3 chip_smoke.py
 
@@ -97,6 +99,20 @@ package.  Phases, each of which raises on failure (exit code 1):
    ``vfl-histogram-sharded`` over ``--data-shards 2``; ``serve_fedgbf
    --save`` hands a model to ``serve_fedgbf --checkpoint ... --quantize 8
    --metrics-port 0``, which scrapes its own endpoint.
+6b. The LM substrate at full width: SmolLM-135M (``get_config``, 30
+   layers, d 576, 9/3 heads, vocab 49152, f32 params, bf16 compute),
+   native init from seed 0: ``launch.train``'s path for 30 steps at batch
+   8 x seq 256 (every ce finite, the last 10 steps' mean below the first
+   10's; tokens/s); one f32 train step at 2 x 64 from the same weights on
+   the card and on the CPU (loss and grad norm within ``LM_PARITY_RTOL``);
+   ``launch.serve.generate`` on the trained model (batch 4, prompt 32, 32
+   greedy tokens; decode tokens/s), and in f32 every decode step's logits
+   within 1e-3 of the full forward's; ``torch.profiler`` over two train
+   steps and eight decode steps (device busy share, launches a step).
+6c. Every architecture's smoke config (and mixtral's at window 8) forward
+   and token-by-token decode on the card in f32, on the seeded numpy
+   weights, within 1e-4 of the committed JAX logits (RWKV 5e-4;
+   ``testdata/lm_smoke_logits.npz``), the MoE aux loss within 1e-6.
 7. Timing at the main path's shapes (CUDA events) beside the plain
    versions, the bounds and, for the histogram, one ``index_add_`` (for
    the sort, one stable ``torch.sort``); the traversal kernels also at
@@ -177,11 +193,50 @@ TIMED_ROWS = (BATCH, 1 << 15, 1 << 16, 3 << 15, 1 << 17, 3 << 16, 1 << 18)
 GOSS_RHO = (0.1, 0.3)
 #: the reference run is stopped after this round and resumed (phase 4c)
 RESUME_AT = 8
+#: the JAX package's logits of the LM smoke cases (``lm_smoke_cases``), on
+#: the weights ``convert.lm_numpy_params(cfg, LM_WEIGHT_SEED)``
+#: (``tests/test_torch_lm_model.py`` writes the file)
+LM_LOGITS = ROOT / "src" / "repro_torch" / "testdata" / "lm_smoke_logits.npz"
+LM_COLS = 64               # vocabulary columns kept in LM_LOGITS
+LM_BATCH = 2
+LM_INPUT_SEED = 3
+LM_WEIGHT_SEED = 0
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def lm_smoke_cases() -> list:
+    """(key, config, positions) of the LM smoke cases: every architecture's
+    smoke config in float32 over 16 positions, and mixtral's at window 8
+    over 24 (the ring buffer wraps twice)."""
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+
+    f32 = dict(compute_dtype="float32")
+    cases = [(arch, dataclasses.replace(get_smoke_config(arch), **f32), 16)
+             for arch in ARCH_IDS]
+    cases.append(("mixtral-8x22b-w8", dataclasses.replace(
+        get_smoke_config("mixtral-8x22b"), window=8, **f32), 24))
+    return cases
+
+
+def lm_smoke_atol(cfg) -> float:
+    """The logit tolerance of a smoke case against the JAX logits."""
+    return LM_SMOKE_ATOL_RWKV if "rwkv" in cfg.pattern else LM_SMOKE_ATOL
+
+
+def lm_case_inputs(cfg, seq: int) -> tuple[np.ndarray, dict]:
+    """A case's numpy inputs: (LM_BATCH, seq) int32 tokens and the
+    frontend stubs (patch embeddings or frames), from LM_INPUT_SEED."""
+    from repro_torch.launch.train import add_stubs
+
+    rng = np.random.default_rng(LM_INPUT_SEED)
+    tokens = rng.integers(0, cfg.vocab, (LM_BATCH, seq)).astype(np.int32)
+    stubs = add_stubs({"tokens": tokens}, cfg, rng)
+    del stubs["tokens"]
+    return tokens, stubs
 
 
 def card_line() -> str:
@@ -1760,6 +1815,224 @@ def phase_launchers(device) -> None:
           "uninterrupted run's (packed model and margins)")
 
 
+#: phase 6b: SmolLM-135M at full width (``get_config``, the launchers'
+#: default ``--arch``)
+LM_ARCH = "smollm-135m"
+LM_TRAIN = (30, 8, 256)   # steps, batch, seq of the launcher's run
+LM_PARITY_SHAPE = (2, 64)  # batch x seq of the card-vs-CPU train step
+# card vs CPU loss and grad norm, f32, TF32 off: measured 8.7e-8 and
+# 7.1e-8 relative (NVIDIA H100 80GB HBM3, 700 W)
+LM_PARITY_RTOL = 1e-6
+LM_SERVE = (4, 32, 32)     # batch, prompt, generated tokens
+LM_DECODE_ATOL = 1e-3      # decode vs forward logits in f32 (the JAX test's)
+# smoke logits vs the committed JAX logits, as the CPU tests hold them;
+# RWKV's chunked WKV forms exp(+-cumulated log decay) over 16-token chunks
+# (a range to e^43) and amplifies last-bit differences: on the CPU JAX's
+# own chunked forward and per-token decode differ by 7.2e-5, the port's
+# and JAX's forwards by 1.8e-4 (logits up to 4.2)
+LM_SMOKE_ATOL = 1e-4
+LM_SMOKE_ATOL_RWKV = 5e-4
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+BF16_OPS_PER_S = 989e12
+
+
+def _lm_decode_error(model, tokens) -> float:
+    """Max |decode_step logits - forward logits| over every position."""
+    import torch
+
+    with torch.no_grad():
+        full, _ = model(tokens)
+        cache = model.init_cache(*tokens.shape)
+        worst = 0.0
+        for t in range(tokens.shape[1]):
+            lg, cache = model.decode_step(cache, tokens[:, t:t + 1], t)
+            worst = max(worst, float((lg[:, 0] - full[:, t]).abs().max()))
+    return worst
+
+
+def phase_lm_full(device, card) -> dict:
+    """Phase 6b: SmolLM-135M at full width (30 layers, d 576, 9/3 heads,
+    vocab 49152; f32 params, bf16 compute), native init from seed 0.
+
+    * ``launch.train``'s path: 30 steps at batch 8 x seq 256 of
+      ``MarkovZipfSource`` batches; every ce finite, the mean of the last
+      10 below the mean of the first 10; tokens/s over steps 11-30.
+    * One train step at batch 2 x seq 64 in f32 (TF32 off) from the same
+      weights on the card and on the CPU: loss and grad norm within
+      ``LM_PARITY_RTOL``.
+    * ``launch.serve.generate`` on the trained model: batch 4, prompt 32,
+      32 greedy tokens, timed on its second call (every step one
+      ``decode_step`` over the batch); then in f32, every decode step's
+      logits within ``LM_DECODE_ATOL`` of the full forward's."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import tokens as tokens_mod
+    from repro_torch.launch import serve as serve_mod, train as train_mod
+    from repro_torch.models import train as lm_train
+    from repro_torch.models.model import LMModel
+
+    cfg = get_config(LM_ARCH)
+    n_params = cfg.flops_params()
+    torch.cuda.reset_peak_memory_stats()
+    steps, batch, seq = LM_TRAIN
+    run = train_mod.run(train_mod.parse_args([
+        "--arch", LM_ARCH, "--steps", str(steps), "--batch", str(batch),
+        "--seq", str(seq)]))
+    losses, walls = run["losses"], run["walls"]
+    check(bool(np.isfinite(losses).all()), "every train ce is finite")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(last < first, f"last-10 mean ce {last:.4f} < first-10 {first:.4f}")
+    train_tok_s = batch * seq * (len(walls) - 10) / (walls[-1] - walls[9])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"lm train {LM_ARCH}: {n_params:,} params, ce {first:.4f} -> "
+          f"{last:.4f}, {train_tok_s:,.0f} tok/s (steps 11-30), model "
+          f"FLOPs 6N x tok/s = {6 * n_params * train_tok_s / 1e12:.2f} "
+          f"TFLOP/s, {6 * n_params * train_tok_s / BF16_OPS_PER_S:.2%} of "
+          f"the bf16 peak; peak memory {peak_gb:.2f} GB | {card}")
+
+    # one f32 step from the same weights, on the card and on the CPU
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cpu_model = LMModel(cfg32, "cpu", torch.Generator().manual_seed(1))
+    card_model = copy.deepcopy(cpu_model).to(device)
+    raw = next(tokens_mod.batches(cfg.vocab, *LM_PARITY_SHAPE, seed=1,
+                                  num_batches=1))
+    step = lm_train.make_train_step(cfg32)
+    got = {}
+    for where, model in (("cpu", cpu_model), ("card", card_model)):
+        state = lm_train.init_train_state(cfg32, model=model)
+        _, m = step(state, train_mod.to_device(raw, model.embed.tokens.device))
+        got[where] = (float(m["loss"]), float(m["grad_norm"]))
+    rel = [abs(a - b) / abs(b) for a, b in zip(got["card"], got["cpu"])]
+    print(f"lm train step f32, card vs CPU ({LM_PARITY_SHAPE[0]}x"
+          f"{LM_PARITY_SHAPE[1]}): loss {got['card'][0]:.7f} / "
+          f"{got['cpu'][0]:.7f} (rel {rel[0]:.2e}), grad norm "
+          f"{got['card'][1]:.6f} / {got['cpu'][1]:.6f} (rel {rel[1]:.2e})")
+    check(max(rel) <= LM_PARITY_RTOL,
+          f"card vs CPU train step within rel {LM_PARITY_RTOL}")
+    del cpu_model
+
+    # serving: greedy generate on the trained model, bf16 compute
+    b, p_len, gen = LM_SERVE
+    model = run["state"].model
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (b, p_len))).to(device)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve_mod.generate(model, prompts, gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    check(out.shape == (b, p_len + gen) and bool((out >= 0).all())
+          and bool((out < cfg.vocab).all()), "generate's tokens")
+    decode_tok_s = b * (p_len + gen) / walls[1]
+    print(f"lm serve {LM_ARCH}: batch {b}, prompt {p_len}, gen {gen}: "
+          f"{walls[1] * 1e3:.1f} ms ({walls[0] * 1e3:.1f} ms first call), "
+          f"{decode_tok_s:,.0f} decode tok/s, "
+          f"{(p_len + gen) / walls[1]:,.1f} steps/s; model FLOPs 2N x tok/s "
+          f"{2 * n_params * decode_tok_s / BF16_OPS_PER_S:.4%} of the bf16 "
+          f"peak | {card}")
+    err = _lm_decode_error(card_model, out)
+    print(f"lm decode f32 vs forward, {b}x{p_len + gen}: max |diff| {err:.3e}")
+    check(err < LM_DECODE_ATOL, f"f32 decode within {LM_DECODE_ATOL} of "
+          "the forward")
+
+    # where the time goes: two more train steps, eight decode steps
+    step = lm_train.make_train_step(cfg, peak_lr=3e-4, warmup=4,
+                                    total_steps=30)
+    raws = tokens_mod.batches(cfg.vocab, batch, seq, seed=2, num_batches=2)
+    batches = [train_mod.to_device(r, device) for r in raws]
+    _lm_profile("train step", 2, lambda: [
+        float(step(run["state"], bt)[1]["ce"]) for bt in batches])
+    _lm_profile("decode step", 8, lambda: serve_mod.generate(
+        model, prompts[:, :4], 4).cpu())
+    return {"train_tok_s": train_tok_s, "decode_tok_s": decode_tok_s,
+            "parity_rel": rel, "decode_err": err}
+
+
+def _lm_profile(what: str, n: int, fn) -> None:
+    """``torch.profiler`` over ``fn`` (n steps of ``what``): wall, device
+    busy time and its share of the wall (the profiler's own host cost
+    included, so a lower bound), kernels launched, and the kernels that
+    take most of the device time, per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # user annotations (the optimizer's step range) are spans, not work
+    spans = {e.key for e in prof.key_averages()
+             if getattr(e, "is_user_annotation", False)
+             or e.key.startswith("Optimizer.")}
+    times = {k: us for k, us in device_times(prof).items() if k not in spans}
+    if not times:
+        print(f"profile lm {what}: device time not measured")
+        return
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.key not in spans)
+    busy_ms = sum(times.values()) / 1e3
+    print(f"profile lm {what}: wall {wall_ms / n:.2f} ms, device busy "
+          f"{busy_ms / n:.3f} ms ({100 * busy_ms / wall_ms:.1f}% of wall, "
+          f"profiler on), {launches / n:,.0f} device activities a step")
+    for key, us in sorted(times.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"  {us / n:9.1f} us/step  {key[:90]}")
+
+
+def phase_lm_smoke(device) -> float:
+    """Phase 6c: every architecture's smoke config (and mixtral's at
+    window 8) forward and decode on the card in f32, on the committed
+    weights' draw, against the committed JAX logits (the first
+    ``LM_COLS`` columns) within ``lm_smoke_atol``; decode against the
+    card's forward within ``LM_DECODE_ATOL`` (but pixtral, whose stub
+    patches only the forward sees).  Returns the worst logit error."""
+    import torch
+
+    from repro_torch import convert
+
+    data = np.load(LM_LOGITS)
+    worst = 0.0
+    for key, cfg, seq in lm_smoke_cases():
+        model = convert.lm_params_from_numpy(
+            cfg, convert.lm_numpy_params(cfg, LM_WEIGHT_SEED), device)
+        tokens, stubs = lm_case_inputs(cfg, seq)
+        tokens = torch.from_numpy(tokens).long().to(device)
+        stubs = {k: torch.from_numpy(v).to(device) for k, v in stubs.items()}
+        with torch.no_grad():
+            logits, aux = model(tokens, **stubs)
+            cache = model.init_cache(*tokens.shape)
+            if cfg.encoder is not None:
+                cache = model.fill_cross_cache(cache,
+                                               model.encode(stubs["frames"]))
+            decode = []
+            for t in range(seq):
+                lg, cache = model.decode_step(cache, tokens[:, t:t + 1], t)
+                decode.append(lg[:, 0])
+        decode = torch.stack(decode, dim=1)
+        fwd_err = float(np.abs(logits[..., :LM_COLS].cpu().numpy()
+                               - data[f"{key}/logits"]).max())
+        dec_err = float(np.abs(decode[..., :LM_COLS].cpu().numpy()
+                               - data[f"{key}/decode"]).max())
+        aux_err = abs(float(aux) - float(data[f"{key}/aux"]))
+        self_err = float((decode - logits).abs().max())
+        print(f"lm smoke {key}: forward {fwd_err:.2e}, decode {dec_err:.2e} "
+              f"vs JAX; aux {aux_err:.2e}; decode vs forward {self_err:.2e}")
+        check(bool(torch.isfinite(logits).all()), f"{key}: finite logits")
+        atol = lm_smoke_atol(cfg)
+        check(max(fwd_err, dec_err) <= atol,
+              f"{key}: logits within {atol} of JAX's")
+        check(aux_err <= 1e-6, f"{key}: aux within 1e-6 of JAX's")
+        if cfg.frontend != "vision_stub":
+            check(self_err < LM_DECODE_ATOL, f"{key}: decode == forward")
+        worst = max(worst, fwd_err, dec_err)
+    return worst
+
+
 def hist_bound(nbytes: float, ops_count: float) -> tuple[float, str]:
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = ops_count / FP32_OPS_PER_S * 1e3
@@ -2058,6 +2331,8 @@ def main() -> int:
         launches[kernel] += sum(runtime.values())
     launches.update(phase_other_paths(device, train))
     phase_launchers(device)
+    phase_lm_full(device, card)
+    phase_lm_smoke(device)
     timing = phase_timing(main_path["packed"], main_path["requests"])
     timing.update(phase_hist_timing(device, train))
     phase_profile(main_path["packed"], main_path["requests"])

@@ -12,6 +12,11 @@ A checkpoint is a pair of files:
   static metadata under ``"packed_ensemble"`` or ``"quantized_ensemble"``
   (and ``"train_state"``).
 
+A language model's weights (``save_lm_params``/``load_lm_params``) are the
+leaves of the JAX parameter tree in its leaf order, each stacked over the
+units, as ``save_pytree(path, state.params)`` writes them in the JAX
+package: a file written by either package's launcher loads in the other.
+
 ``save_pytree``/``load_pytree`` take flat lists of arrays, the one pytree
 shape the port writes.  Every write lands via temp file + ``os.replace``,
 npz first and sidecar second, so a kill at any instant leaves one complete
@@ -32,6 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch.convert import (
+    lm_leaves,
+    lm_params_from_leaves,
     packed_from_numpy,
     packed_to_numpy,
     quantized_from_numpy,
@@ -282,3 +289,20 @@ def load_train_state(path: str, device=None) -> dict:
             "config_fingerprint": state["config_fingerprint"],
             "history": state.get("history"),
         }
+
+
+def save_lm_params(path: str, model) -> None:
+    """Persist an ``LMModel``'s weights in the JAX parameter tree's leaf
+    order (bfloat16 leaves as their uint16 bits)."""
+    with trace_mod.global_tracer().span("checkpoint.save_lm", cat="io",
+                                        args={"path": path}):
+        save_pytree(path, lm_leaves(model))
+
+
+def load_lm_params(path: str, cfg, device=None):
+    """An ``LMModel`` of ``cfg`` on ``device`` (default ``cuda``) holding
+    the weights of a params file written by either package."""
+    with trace_mod.global_tracer().span("checkpoint.load_lm", cat="io",
+                                        args={"path": path}):
+        return lm_params_from_leaves(cfg, load_pytree(path, device="cpu"),
+                                     device)

@@ -1,4 +1,4 @@
-"""The port's histogram kernel and training path on the card:
+"""The port's histogram kernel, training path and LM substrate on the card:
 ``chip_smoke.py``'s phases as tests.  They skip without a card; on a
 machine with one H100 (no JAX needed):
 
@@ -58,3 +58,12 @@ def test_launchers_on_card(smoke):
     to serve_fedgbf --quantize 8 --metrics-port 0."""
     chip_smoke, device = smoke
     chip_smoke.phase_launchers(device)
+
+
+@pytest.mark.cuda
+def test_lm_smoke_configs_on_card(smoke):
+    """Every architecture's smoke config, forward and token-by-token
+    decode on the card in f32, within ``lm_smoke_atol`` of the committed
+    JAX logits (phase 6c)."""
+    chip_smoke, device = smoke
+    assert chip_smoke.phase_lm_smoke(device) <= chip_smoke.LM_SMOKE_ATOL_RWKV

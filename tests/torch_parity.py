@@ -3,7 +3,10 @@ through the JAX package and the PyTorch port alike."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import pytest
 
 FIELDS = ("feature", "threshold", "gain", "leaf_weight", "tree_scale",
           "bin_edges")
@@ -165,3 +168,31 @@ def assert_trees_equal(t_trees, j_trees, leaf_atol=1e-5):
     np.testing.assert_allclose(t_trees.leaf_weight.cpu().numpy(),
                                np.asarray(j_trees.leaf_weight), rtol=0,
                                atol=leaf_atol)
+
+
+def jax_model_config(cfg):
+    """The JAX package's ``ModelConfig`` with the fields of the port's
+    ``cfg`` (nested configs too)."""
+    from repro.models import config as j_config
+
+    kw = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if dataclasses.is_dataclass(v):
+            v = getattr(j_config, type(v).__name__)(**dataclasses.asdict(v))
+        kw[f.name] = v
+    return j_config.ModelConfig(**kw)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Run a test with one torch CPU thread, then restore the count.  The
+    suite runs several worker processes on the same cores; torch's
+    intra-op threads waiting on each other across them slowed small CPU
+    training steps a hundredfold there."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
