@@ -6,7 +6,9 @@ vertically federated with 4 parties: raw, quantized, under the chaos
 transport, with party dropout and the gradient-less fallback, and over 2
 row shards) through the histogram kernel; then the LM substrate (no
 kernel of its own): SmolLM-135M trained and served at full width, and
-every architecture's smoke config against the JAX package's logits.
+every architecture's smoke config against the JAX package's logits; then
+the meta-device dry-run held against a real step, its 10 x 4 matrix, the
+paper's production-grid forest round and the examples.
 
     python3 chip_smoke.py
 
@@ -123,7 +125,22 @@ package.  Phases, each of which raises on failure (exit code 1):
    shapes, each launch split into sort and walk with its longest slot
    segment and the device time of each of its kernels; then profiles of
    the serving stream and of the 20-round training run.
-8. The kernels line, then the card line, then the result line.
+8. The dry-run and the rest of the JAX package's entry points:
+   a. ``launch.dryrun.run_one`` for SmolLM-135M's train step at 6b's
+      shape (8 x 256) on a (1, 1) mesh, on ``meta``, against one real step
+      on the card under the same ``CostCounter``: FLOPs equal, the train
+      state's bytes equal up to allocator rounding, the peak within
+      ``PEAK_RTOL``; the roofline's compute and memory times beside the
+      measured step; the same for one decode step at batch 4 (FLOPs);
+   b. the single-pod 10 x 4 dry-run matrix on ``meta`` (spawned workers):
+      every cell ok or skipped by rule;
+   c. ``launch.dryrun_fedgbf``'s sweep on the card: the paper's forest
+      round (150,000 rows, 16 parties, 16 or 32 row shards, 8 on the
+      explicit grid): every meter reconciled (delta 0), the trees equal
+      ``local-cuda``'s, parties x shards histogram launches a level, async
+      over sync exactly 1, the subtraction and compaction cuts, each wall;
+   d. the four examples' ``main(device="cuda")`` at their defaults.
+9. The kernels line, then the card line, then the result line.
 
 Exits non-zero, printing no result, when CUDA is not available or the port
 is not beside this file.
@@ -2033,6 +2050,257 @@ def phase_lm_smoke(device) -> float:
     return worst
 
 
+#: phase 8a: the dry-run's one-card case at phase 6b's train shape and a
+#: decode step at phase 6b's serving batch (its cache: prompt + generated)
+DRY_TRAIN = ("smollm_8x256", "train", 256, 8)
+DRY_DECODE = ("smollm_decode_b4", "decode", 64, 4)
+#: the caching allocator's rounding of one tensor: 512 B under 1 MiB; a
+#: larger block is not split when less than 1 MiB would remain, so it may
+#: hold up to 1 MiB more than the tensor
+ALLOC_SMALL, ALLOC_LARGE = 512, 1 << 20
+#: the card's peak vs the dry-run's (arguments + the counter's live peak):
+#: measured +2.04% in two runs (NVIDIA H100 80GB HBM3, 700.00 W); the card
+#: adds cuBLAS workspaces and kernels' temporaries, which no aten op returns
+PEAK_RTOL = 0.05
+
+
+def _step_ms(fn, n: int) -> float:
+    """Mean host wall (ms) of ``n`` calls of ``fn``, the device
+    synchronised after the last (one warm-up call first)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def phase_dryrun_card(device, card) -> dict:
+    """Phase 8a: the dry-run's one-card case against the card.
+
+    ``dryrun.run_one`` counts SmolLM-135M's train step at phase 6b's shape
+    (8 x 256; f32 params, bf16 compute, remat on) on a (1, 1) mesh, on
+    ``meta``; then one real step on the card under the same
+    ``CostCounter``: its FLOPs must equal the dry-run's exactly; the train
+    state and batch on the card must hold the dry-run's argument bytes
+    exactly (but the int64 token indices the model takes and the step,
+    which AdamW keeps on the host), and ``memory_allocated`` them up to
+    the allocator's rounding; the card's peak (``max_memory_allocated``)
+    must sit within ``PEAK_RTOL`` of the dry-run's.  The roofline's
+    compute and memory times are printed beside the measured step time.
+    Then the same for one decode step at batch 4 (FLOPs exact)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import tokens as tokens_mod
+    from repro_torch.launch import dryrun, shapes, train as train_mod
+    from repro_torch.launch.mesh import AbstractMesh, HBM_BYTES
+    from repro_torch.models import train as lm_train
+    from repro_torch.tools.roofline import CostCounter
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"dryrun card: total_memory {total:,} B, launch.mesh.HBM_BYTES "
+          f"{HBM_BYTES:,} B | {card}")
+    mesh = AbstractMesh({"data": 1, "model": 1})
+    cfg = get_config(LM_ARCH)
+    spec = shapes.ShapeSpec(*DRY_TRAIN)
+    t0 = time.perf_counter()
+    report = dryrun.run_one(LM_ARCH, spec, False, save=False, mesh=mesh)
+    dry_s = time.perf_counter() - t0
+    check(report["status"] == "ok", f"dry-run {report['tag']} ok: "
+          f"{report.get('error')}")
+    roof, mem = report["roofline"], report["memory"]
+    dry_args = mem["argument_bytes_per_device"]
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    state = lm_train.init_train_state(cfg, device,
+                                      torch.Generator().manual_seed(0))
+    raw = next(tokens_mod.batches(cfg.vocab, spec.global_batch, spec.seq_len,
+                                  seed=0, num_batches=1))
+    batch = train_mod.to_device(raw, device)
+    torch.cuda.synchronize()
+    card_args = torch.cuda.memory_allocated() - base
+    tensors = [t for p in state.model.parameters()
+               for t in (p, state.opt.state[p]["m"], state.opt.state[p]["v"])]
+    tensors += list(batch.values())
+    card_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    slack = sum(ALLOC_LARGE if t.numel() * t.element_size() >= ALLOC_LARGE
+                else ALLOC_SMALL for t in tensors)
+    index_extra = sum(t.numel() * 4 for t in batch.values())  # int64 - int32
+    step = lm_train.make_train_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    with CostCounter() as counter:
+        step(state, batch)
+    torch.cuda.synchronize()
+    card_peak = torch.cuda.max_memory_allocated() - base
+    dry_peak = mem["peak_bytes_per_device"] + index_extra
+    step_ms = _step_ms(lambda: step(state, batch), 5)
+    bound_s = max(roof["compute_s"], roof["memory_s"])
+    print(f"dryrun train {report['tag']}: counted in {dry_s:.1f} s; FLOPs "
+          f"{roof['flops']:.6e} meta == {counter.flops:.6e} card; arguments"
+          f" {dry_args:,} B dry, the card's tensors {card_bytes:,} B "
+          f"({index_extra:,} B of int64 indices, no 4 B step tensor), "
+          f"allocated {card_args:,} B (+{card_args - card_bytes:,} B of "
+          f"rounding, at most {slack:,}); peak {dry_peak:,} B dry (temp "
+          f"{mem['temp_bytes_per_device']:,}) vs {card_peak:,} B card "
+          f"({card_peak / dry_peak - 1:+.4%}; the card's counter peak "
+          f"{counter.peak:,} B); step {step_ms:.2f} ms measured vs roofline "
+          f"compute {roof['compute_s'] * 1e3:.4f} ms, memory "
+          f"{roof['memory_s'] * 1e3:.4f} ms ({step_ms / 1e3 / bound_s:.1f}x "
+          f"the larger) | {card}")
+    check(counter.flops == roof["flops"],
+          "the card's train-step FLOPs == the dry-run's")
+    check(card_bytes == dry_args - 4 + index_extra,
+          "the card's train state and batch == the dry-run's arguments")
+    check(0 <= card_args - card_bytes <= slack,
+          "memory_allocated within the allocator's rounding of them")
+    check(abs(card_peak / dry_peak - 1) <= PEAK_RTOL,
+          f"the card's peak within {PEAK_RTOL:.0%} of the dry-run's")
+
+    dspec = shapes.ShapeSpec(*DRY_DECODE)
+    dreport = dryrun.run_one(LM_ARCH, dspec, False, save=False, mesh=mesh)
+    check(dreport["status"] == "ok", f"dry-run {dreport['tag']} ok")
+    model = state.model
+    del state, step
+    cache = model.init_cache(dspec.global_batch, dspec.seq_len)
+    token = torch.zeros((dspec.global_batch, 1), dtype=torch.long,
+                        device=device)
+    pos = dspec.seq_len - 1
+    with torch.no_grad():
+        with CostCounter() as dcounter:
+            model.decode_step(cache, token, pos)
+        decode_ms = _step_ms(lambda: model.decode_step(cache, token, pos),
+                             20)
+    droof = dreport["roofline"]
+    print(f"dryrun decode {dreport['tag']}: FLOPs {droof['flops']:.6e} meta"
+          f" == {dcounter.flops:.6e} card; step {decode_ms:.3f} ms measured "
+          f"vs roofline compute {droof['compute_s'] * 1e3:.6f} ms, memory "
+          f"{droof['memory_s'] * 1e3:.6f} ms | {card}")
+    check(dcounter.flops == droof["flops"],
+          "the card's decode-step FLOPs == the dry-run's")
+    return {"train_ms": step_ms, "decode_ms": decode_ms,
+            "peak_ratio": card_peak / dry_peak}
+
+
+def phase_dryrun_matrix() -> float:
+    """Phase 8b: ``dryrun.run_one`` for the single-pod 10 x 4 matrix on
+    ``meta`` (no device), in spawned worker processes (one a CPU core, up
+    to 8): every cell ok, or skipped for long_500k on a full-attention
+    arch.  Returns the seconds it took."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch import dryrun, shapes
+
+    cells = [(arch, name) for arch in ARCH_IDS for name in shapes.SHAPES]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = [pool.submit(dryrun.run_one, arch, name, False, False)
+                   for arch, name in cells]
+        reports = [f.result() for f in futures]
+    wall = time.perf_counter() - t0
+    for (arch, name), r in zip(cells, reports):
+        if r["status"] == "skipped":
+            check(not shapes.applicable(arch, name)[0],
+                  f"{r['tag']} skipped by rule")
+            print(f"dryrun matrix {r['tag']}: skipped ({r['reason']})")
+            continue
+        check(r["status"] == "ok", f"{r['tag']} ok: {r.get('error')}")
+        roof = r["roofline"]
+        total_s = roof["compute_s"] + roof["memory_s"] + roof["collective_s"]
+        print(f"dryrun matrix {r['tag']}: FLOPs {roof['flops']:.4e}, "
+              f"arguments {r['memory']['argument_bytes_per_device']:,} B a "
+              f"device, peak {r['memory']['peak_bytes_per_device']:,} B, "
+              f"dominant {roof['dominant']}, compute + memory + collective "
+              f"{total_s:.4f} s (counted in {r['count_s']} s)")
+    print(f"dryrun matrix: {len(cells)} cells in {wall:.1f} s")
+    return wall
+
+
+def phase_dryrun_fedgbf(device, card) -> dict:
+    """Phase 8c: ``dryrun_fedgbf.sweep`` on the card: the paper's forest
+    round (5 depth-3 trees, 150,000 Give-Me-Some-Credit rows padded to 16
+    columns, B = 32) on the 16 x 16 grid (and 2 x 16 x 16, pod folded into
+    data) with 16 parties as column blocks and the data shards as row
+    blocks; ``sweep`` raises unless every run's meter reconciles with the
+    wire model (delta 0), the histogram, async and argmax trees equal
+    ``local-cuda``'s, and each run launched the histogram kernel (and its
+    sort) parties x shards times a level.  Returns the summed launches,
+    the ``local-cuda`` oracle builds' included."""
+    from repro_torch.launch import dryrun_fedgbf
+
+    result = dryrun_fedgbf.sweep(device, data_shards=8, save=False)
+    oracle = sum(r["oracle_histogram_launches"] for r in result["runs"])
+    launches = oracle + sum(r["histogram_launches"] for r in result["runs"])
+    sorts = sum(r["sort_launches"] + r["oracle_sort_launches"]
+                for r in result["runs"])
+    check(sorts == launches, "8c: a sort a histogram launch")
+    check(oracle > 0, "8c: the local-cuda oracles launched the kernel")
+    ratios = result["ratios"]
+    check(ratios["async_over_sync"] == 1.0, "8c: async / sync == 1")
+    print(f"dryrun fedgbf: async / sync {ratios['async_over_sync']:.3f}, "
+          f"subtraction cut {ratios['subtraction_cut']:.4f}x, depth-5 "
+          f"compaction cut {ratios['compaction_cut']:.4f}x; walls "
+          + ", ".join(f"{r['tag'].split('__', 2)[2]} "
+                      f"{r['wall_s'] * 1e3:.1f} ms" for r in result["runs"])
+          + f"; {launches} histogram launches ({oracle} of them the "
+          f"local-cuda oracles') | {card}")
+    return {"histogram_round": launches, "histogram_sort": sorts}
+
+
+def phase_examples(device, card) -> dict:
+    """Phase 8d: every example's ``main(device="cuda")`` at its defaults
+    (``lm_pretrain_e2e`` with ``quick=True``); quickstart prints its AUCs,
+    vfl_credit_scoring raises unless every ledger reconciles with its
+    run's own meter.  Returns the kernel launches they made."""
+    import torch
+
+    from repro_torch.examples import (
+        embeddings_head,
+        lm_pretrain_e2e,
+        quickstart,
+        vfl_credit_scoring,
+    )
+    from repro_torch.kernels.ensemble_predict import ops as ep_ops
+    from repro_torch.kernels.histogram import ops as hist_ops
+
+    launches = {}
+    for name, fn in (
+            ("quickstart", lambda: quickstart.main(device)),
+            ("vfl_credit_scoring", lambda: vfl_credit_scoring.main(device)),
+            ("embeddings_head", lambda: embeddings_head.main(device)),
+            ("lm_pretrain_e2e", lambda: lm_pretrain_e2e.main(device,
+                                                             quick=True))):
+        hist_ops.reset_launches()
+        ep_ops.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if name == "quickstart":
+            check(min(out["dynamic_fedgbf"]["auc"],
+                      out["secureboost"]["auc"]) > 0.5,
+                  "quickstart AUCs above chance")
+        if name == "lm_pretrain_e2e":
+            check(bool(np.isfinite(out["losses"]).all()),
+                  "lm_pretrain_e2e losses finite")
+        counts = {k: hist_ops.kernel_launches(k) for k in hist_ops.KERNELS}
+        counts.update({k: ep_ops.kernel_launches(k) for k in ep_ops.KERNELS})
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"example {name}: {wall:.1f} s, launches "
+              f"{ {k: v for k, v in counts.items() if v} } | {card}")
+    return launches
+
+
 def hist_bound(nbytes: float, ops_count: float) -> tuple[float, str]:
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = ops_count / FP32_OPS_PER_S * 1e3
@@ -2337,10 +2605,20 @@ def main() -> int:
     timing.update(phase_hist_timing(device, train))
     phase_profile(main_path["packed"], main_path["requests"])
     phase_train_profile(device)
+    # phase 8: the dry-run against the card, the matrix on meta, the
+    # production-grid forest round and the examples (each path's launches
+    # counted from zero)
+    phase_dryrun_card(device, card)
+    phase_dryrun_matrix()
+    for extra in (phase_dryrun_fedgbf(device, card),
+                  phase_examples(device, card)):
+        for kernel, count in extra.items():
+            launches[kernel] += count
     paths = {
         "ensemble_predict_raw": "serve fused-cuda, 1,048,576 requests each "
                                 "of the f32, int8 and int16 checkpoints; "
-                                "the federated models score the test rows",
+                                "the federated models and the examples "
+                                "score the test rows",
         "ensemble_predict_binned": "serve cuda, 65,536 requests each of "
                                    "the f32, int8 and int16 checkpoints",
         "histogram_round": "train_fedgbf local-cuda, 20 rounds: uniform, "
@@ -2348,7 +2626,10 @@ def main() -> int:
                            "vfl-histogram, 4 parties, one launch a party "
                            "a level; its chaos, party-dropout, "
                            "gradient-less and 2-shard runs, one launch a "
-                           "party (and shard) a level",
+                           "party (and shard) a level; the production-"
+                           "grid forest rounds, one launch a party and "
+                           "shard a level, and their local-cuda oracle "
+                           "builds; the examples' training",
         "histogram_tree": "round 1, per-tree providers",
         "histogram_staged": "round 1, histogram_dispatch('cuda')",
         "histogram_sort": "the first step of every histogram_round launch",

@@ -1,0 +1,118 @@
+"""Vertical federated credit scoring, the full protocol flow: the port of
+``examples/vfl_credit_scoring.py``.
+
+Two parties (bank = active, with the labels; fintech = passive) hold
+disjoint feature columns of the same customers.  In the port the parties
+are column blocks of one process on one card (``federation/mesh_roles.py``),
+so no forced devices are needed: each party's histogram is one launch of
+the histogram kernel on its block.  The message ledger reconciles the bytes
+every exchange ships against the predicted wire model (and prices the
+paper-world Paillier protocol alongside); the secure-aggregation demo shows
+the masking algebra on a broadcast; the quantized transport ships ~5x
+fewer histogram bytes.
+
+The secure-aggregation masks come from ``secure.pairwise_masks``, whose PRF
+terms are inputs to the port (the JAX package draws them with threefry,
+which the port does not reproduce): here a seeded torch draw
+(``secure.native_prf``).  The masks differ from the JAX script's; that they
+cancel exactly does not.
+
+    PYTHONPATH=src python -m repro_torch.examples.vfl_credit_scoring \
+        [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import torch
+
+from repro_torch.core import boosting, metrics
+from repro_torch.core.types import TreeConfig
+from repro_torch.data import synthetic, tabular
+from repro_torch.device import resolve
+from repro_torch.federation import compress, protocol, secure, vfl
+
+PARTIES = 2
+
+
+def main(device="cuda", n: int = 8_000, rounds: int = 8) -> list:
+    """Returns one dict a run (tag, AUC, the ledger's reconciliation, the
+    run's own metered bytes by phase, Paillier's modelled total); raises if
+    a ledger does not reconcile."""
+    device = resolve(device)
+    ds = synthetic.load("default_credit_card", n=n)
+    x_train, d_pad = tabular.pad_features(ds.x_train, PARTIES)
+    x_test, _ = tabular.pad_features(ds.x_test, PARTIES)
+    part = tabular.even_partition(d_pad, PARTIES)
+    print(f"bank (active) holds columns {part.columns(0)}, "
+          f"fintech (passive) holds {part.columns(1)}")
+
+    # --- secure aggregation: parties mask their contributions; only the
+    # sum is visible to the aggregator (the masks cancel exactly)
+    contrib = torch.stack([torch.ones(5) * 2.0, torch.ones(5) * 3.0])
+    masks = secure.pairwise_masks(seed=42, num_parties=PARTIES, shape=(5,))
+    masked = secure.mask(contrib, masks)
+    print("masked party messages (unreadable):", masked[0][:3].tolist())
+    print("aggregate (masks cancel):", secure.aggregate(masked)[:3].tolist())
+
+    # --- federated training: lossless modes + the quantized transport
+    tree_cfg = TreeConfig(max_depth=3, num_bins=32)
+    cfg = boosting.dynamic_fedgbf_config(rounds=rounds, tree=tree_cfg)
+    x_t = torch.from_numpy(x_test).to(device)
+    y_t = torch.from_numpy(ds.y_test).to(device)
+    runs = []
+    for aggregation, transport, subtraction in (
+        ("histogram", None, False),         # the paper's full histograms
+        ("argmax", None, False),            # candidate-only exchange
+        ("histogram", compress.Q8, False),  # quantized exchange
+        ("histogram", compress.Q8, True),   # + sibling subtraction
+    ):
+        run_tree = dataclasses.replace(tree_cfg, hist_subtraction=subtraction)
+        run_cfg = dataclasses.replace(cfg, tree=run_tree)
+        meter = compress.MessageMeter()
+        backend = vfl.make_vfl_backend(PARTIES, run_tree,
+                                       aggregation=aggregation,
+                                       transport=transport, meter=meter)
+        model, _ = boosting.train_fedgbf(x_train, ds.y_train, run_cfg,
+                                         backend=backend, device=device)
+        rep = metrics.classification_report(
+            y_t, boosting.predict(model, x_t, impl="fused-cuda"))
+        # measured bytes: every exchange meters its payload; the ledger
+        # reconciles a dry probe's against the wire model, and the run's
+        # own meter must equal the ledger's measured side
+        ledger = compress.reconciled_ledger(
+            PARTIES, run_tree, run_cfg, aggregation=aggregation,
+            transport=transport, n_samples=x_train.shape[0],
+            num_features=d_pad)
+        rec = ledger.reconcile()
+        live = {phase: nbytes * (PARTIES - 1
+                                 if phase in protocol.PER_PASSIVE_PHASES
+                                 else 1)
+                for phase, nbytes in meter.phase_totals().items()}
+        if not (ledger.matches() and all(
+                ledger.measured[k] == v for k, v in live.items())):
+            raise AssertionError(f"ledger does not reconcile: {rec}, run "
+                                 f"{live}")
+        paillier = ledger.predicted_paillier()
+        tag = (f"{aggregation}" + (f"-{transport.tag}" if transport else "")
+               + ("+sub" if subtraction else ""))
+        runs.append({"tag": tag, "auc": rep["auc"], "reconcile": rec,
+                     "run_bytes": live, "paillier_bytes": paillier.total})
+        print(f"[{tag:17s}] test auc={rep['auc']:.4f} "
+              f"wire measured={rec['total']['measured'] / 1e6:.1f} MB "
+              f"predicted={rec['total']['predicted'] / 1e6:.1f} MB "
+              f"(match={rec['total']['match']}, "
+              f"histograms {rec['histograms']['measured'] / 1e6:.1f} MB) "
+              f"paillier-model={paillier.total / 1e6:.1f} MB")
+    print("-> the same AUC at ~5x fewer histogram bytes under q8 (more with "
+          "sibling subtraction on top); measured wire bytes reconcile "
+          "exactly with the ledger's prediction")
+    return runs
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--device", default="cuda")
+    main(ap.parse_args().device)

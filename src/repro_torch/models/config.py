@@ -108,8 +108,7 @@ class ModelConfig:
     num_patches: int = 0                # VLM stub: first N positions are patches
 
     seq_shard_attn: bool = True         # query-seq sharding fallback when
-    # heads don't divide the model axis (the JAX package's
-    # partition.shard_heads); kept for the copy, unused off a mesh.
+    # heads don't divide the model axis (partition.heads_spec).
     param_dtype: str = "float32"        # float32|bfloat16 (big models: bf16)
     compute_dtype: str = "bfloat16"
     remat: bool = True                  # activation checkpoint each unit

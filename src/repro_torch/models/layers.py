@@ -8,8 +8,8 @@ matches; the functions keep the JAX names and take the module as ``p``.
 Modules are created empty (``torch.empty``) and filled by
 ``LMModel.init_weights`` or ``convert.lm_params_from_numpy``.
 
-The JAX calls to ``partition.shard_*`` are no-ops off a mesh, so the port
-leaves them out.
+The ``partition.shard_*`` anchors sit at the JAX package's sites; they
+only record, inside the dry-run's ``partition.recording`` context.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.models import partition
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -155,9 +157,13 @@ def attention(
     B, S, _ = x.shape
     src = kv_src if kv_src is not None else x
     S_kv = src.shape[1]
-    q = (x @ p.wq.to(x.dtype)).reshape(B, S, n_heads, hd)
-    k = (src @ p.wk.to(x.dtype)).reshape(B, S_kv, n_kv, hd)
-    v = (src @ p.wv.to(x.dtype)).reshape(B, S_kv, n_kv, hd)
+    seq_ok = cfg.seq_shard_attn
+    q = partition.shard_heads((x @ p.wq.to(x.dtype)).reshape(
+        B, S, n_heads, hd), role="q", seq_ok=seq_ok)
+    k = partition.shard_heads((src @ p.wk.to(x.dtype)).reshape(
+        B, S_kv, n_kv, hd), role="kv")
+    v = partition.shard_heads((src @ p.wv.to(x.dtype)).reshape(
+        B, S_kv, n_kv, hd), role="kv")
 
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
@@ -165,8 +171,8 @@ def attention(
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    k = _expand_kv(k, n_heads // n_kv)
-    v = _expand_kv(v, n_heads // n_kv)
+    k = partition.shard_heads(_expand_kv(k, n_heads // n_kv), role="kv")
+    v = partition.shard_heads(_expand_kv(v, n_heads // n_kv), role="kv")
 
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
     scores = softcap(scores, attn_softcap)
@@ -184,7 +190,8 @@ def attention(
 
     probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, S, n_heads * hd)
-    return out @ p.wo.to(x.dtype)
+    out = partition.shard_fused_heads(out, n_heads=n_heads, seq_ok=seq_ok)
+    return partition.shard_tokens(out @ p.wo.to(x.dtype))
 
 
 def attention_decode(
@@ -262,14 +269,16 @@ class FFN(nn.Module):
 def ffn(p: FFN, x: torch.Tensor, cfg) -> torch.Tensor:
     dt = x.dtype
     if cfg.ffn_type == "swiglu":
-        h = F.silu(x @ p.w_gate.to(dt)) * (x @ p.w_up.to(dt))
-    elif cfg.ffn_type == "geglu":
-        h = F.gelu(x @ p.w_gate.to(dt), approximate="tanh") * (
+        h = F.silu(partition.shard_ff(x @ p.w_gate.to(dt))) * (
             x @ p.w_up.to(dt))
+    elif cfg.ffn_type == "geglu":
+        h = F.gelu(partition.shard_ff(x @ p.w_gate.to(dt)),
+                   approximate="tanh") * (x @ p.w_up.to(dt))
     else:
-        h = F.gelu(x @ p.w_in.to(dt), approximate="tanh")
-        return h @ p.w_out.to(dt)
-    return h @ p.w_down.to(dt)
+        h = F.gelu(partition.shard_ff(x @ p.w_in.to(dt)), approximate="tanh")
+        return partition.shard_tokens(h @ p.w_out.to(dt))
+    h = partition.shard_ff(h)
+    return partition.shard_tokens(h @ p.w_down.to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -291,6 +300,7 @@ class Embed(nn.Module):
 def embed_tokens(p: Embed, tokens: torch.Tensor, cfg,
                  pos_offset: int = 0) -> torch.Tensor:
     x = F.embedding(tokens, p.tokens).to(dtype_of(cfg.compute_dtype))
+    x = partition.shard_tokens(x)
     if cfg.pos_type == "abs":  # whisper-style absolute positions
         positions = torch.arange(tokens.shape[-1], device=tokens.device) \
             + pos_offset
@@ -300,4 +310,5 @@ def embed_tokens(p: Embed, tokens: torch.Tensor, cfg,
 
 def lm_logits(p: Embed, x: torch.Tensor, cfg) -> torch.Tensor:
     w = p.tokens.T if cfg.tie_embeddings else p.lm_head
-    return softcap(x @ w.to(x.dtype), cfg.logits_softcap)
+    logits = partition.shard_ff(x @ w.to(x.dtype))  # vocab over "model"
+    return softcap(logits, cfg.logits_softcap)

@@ -221,6 +221,24 @@ class LMModel(nn.Module):
                 for _ in range(cfg.num_units)]
         return cache
 
+    @staticmethod
+    def jax_cache_leaves(cache: dict) -> list[tuple[tuple, list]]:
+        """[(JAX path, [tensor per unit])] of a decode cache, in the JAX
+        package's leaf order: the layout of the JAX ``init_cache``, which
+        stacks every leaf over the units (``("blocks", i, "k")`` for pattern
+        position ``i``; ``("shared", "k")``; ``("cross", "k")``), as
+        ``jax_leaves`` does for parameters."""
+        grouped: dict[tuple, list] = {}
+        for unit in cache["blocks"]:
+            for i, block in enumerate(unit):
+                for key, t in block.items():
+                    grouped.setdefault(("blocks", i, key), []).append(t)
+        for name in ("shared", "cross"):
+            for block in cache.get(name, ()):
+                for key, t in block.items():
+                    grouped.setdefault((name, key), []).append(t)
+        return [(path, grouped[path]) for path in sorted(grouped)]
+
     def fill_cross_cache(self, cache: dict, enc_out: torch.Tensor) -> dict:
         """Populate the per-decoder-layer cross K/V from encoder output."""
         if self.cfg.pattern != ("dec_attn",):

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import partition
 from repro_torch.models.layers import dtype_of, empty_param
 
 
@@ -51,6 +52,17 @@ def _route(p: MoE, xf: torch.Tensor, cfg):
     return top_w, top_i, aux
 
 
+def _group_sizes(expert_id: torch.Tensor, E: int) -> list[int]:
+    """Token copies per expert.  A ``meta`` tensor holds no ids, so there
+    the ``T*K`` copies are spread evenly (``T*K // E`` a group, the
+    remainder to the first groups): the grouped products' FLOPs depend only
+    on the groups' sum, which the dry-run counts (``launch/costmodel.py``)."""
+    if expert_id.device.type == "meta":
+        q, r = divmod(expert_id.numel(), E)
+        return [q + (e < r) for e in range(E)]
+    return torch.bincount(expert_id, minlength=E).tolist()
+
+
 def _grouped_matmul(xs: torch.Tensor, w: torch.Tensor,
                     sizes: list[int]) -> torch.Tensor:
     """``ragged_dot``: rows [start_e, start_e + sizes[e]) of ``xs`` times
@@ -78,17 +90,17 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     order = torch.argsort(expert_id, stable=True)
     inv_order = torch.argsort(order, stable=True)
     xs = xf.repeat_interleave(K, dim=0)[order]                  # (T*K, D)
-    sizes = torch.bincount(expert_id, minlength=E).tolist()
+    sizes = _group_sizes(expert_id, E)
 
     dt = x.dtype
-    hg = _grouped_matmul(xs, p.w_gate.to(dt), sizes)
-    hu = _grouped_matmul(xs, p.w_up.to(dt), sizes)
+    hg = partition.shard_ff(_grouped_matmul(xs, p.w_gate.to(dt), sizes))
+    hu = partition.shard_ff(_grouped_matmul(xs, p.w_up.to(dt), sizes))
     act = F.silu(hg) * hu
     ys = _grouped_matmul(act, p.w_down.to(dt), sizes)           # (T*K, D)
 
     y = ys[inv_order].reshape(T, K, D)
     out = (y * top_w[..., None].to(dt)).sum(1)
-    return out.reshape(B, S, D), aux
+    return partition.shard_tokens(out.reshape(B, S, D)), aux
 
 
 def _round_up(x: int, m: int) -> int:
@@ -110,7 +122,9 @@ def moe_ffn_dense(p: MoE, x: torch.Tensor,
     expert_id = top_i.reshape(TK)
     order = torch.argsort(expert_id, stable=True)
     sorted_e = expert_id[order]
-    group_sizes = torch.bincount(expert_id, minlength=E)
+    group_sizes = (torch.tensor(_group_sizes(expert_id, E), device=x.device)
+                   if x.device.type == "meta"
+                   else torch.bincount(expert_id, minlength=E))
     starts = torch.cumsum(group_sizes, 0) - group_sizes         # exclusive
     rank_sorted = torch.arange(TK, device=x.device) - starts[sorted_e]
 
@@ -125,18 +139,21 @@ def moe_ffn_dense(p: MoE, x: torch.Tensor,
         (sorted_e, slot),
         torch.where(keep[:, None], xf[token_sorted], 0).to(dt),
         accumulate=True)
+    xd = partition.shard_ecd(xd)
 
-    h = torch.einsum("ecd,edf->ecf", xd, p.w_gate.to(dt))
+    h = partition.shard_ecd(torch.einsum("ecd,edf->ecf", xd,
+                                         p.w_gate.to(dt)))
     u = torch.einsum("ecd,edf->ecf", xd, p.w_up.to(dt))
     act = F.silu(h) * u
-    yd = torch.einsum("ecf,efd->ecd", act, p.w_down.to(dt))     # (E, C, D)
+    yd = partition.shard_ecd(torch.einsum("ecf,efd->ecd", act,
+                                          p.w_down.to(dt)))     # (E, C, D)
 
     # Combine back: gather each copy's expert output (dropped copies get 0).
     ys = torch.where(keep[:, None], yd[sorted_e, slot], 0).to(dt)
     inv_order = torch.argsort(order, stable=True)
     y = ys[inv_order].reshape(T, K, D)
     out = (y * top_w[..., None].to(dt)).sum(1)
-    return out.reshape(B, S, D), aux
+    return partition.shard_tokens(out.reshape(B, S, D)), aux
 
 
 def moe_ffn_dispatch(p: MoE, x: torch.Tensor, cfg):

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models import layers
+from repro_torch.models import layers, partition
 from repro_torch.models.layers import dtype_of, empty_param
 
 
@@ -68,7 +68,7 @@ def _split_proj(p: Mamba, u: torch.Tensor, cfg, d_model: int):
     d_in = s.d_inner(d_model)
     H = s.n_heads(d_model)
     N = s.d_state
-    zxbcdt = u @ p.in_proj.to(u.dtype)
+    zxbcdt = partition.shard_ff(u @ p.in_proj.to(u.dtype))
     z, xs, Bm, Cm, dt_raw = torch.split(zxbcdt, [d_in, d_in, N, N, H], dim=-1)
     return z, xs, Bm, Cm, dt_raw, d_in, H, N
 
@@ -232,9 +232,9 @@ def _rwkv_inputs(p: RWKVTime, x: torch.Tensor, cfg, x_prev=None):
     def mix(i):
         return x + mu[i] * (shifted - x)
 
-    r = mix(0) @ p.wr.to(x.dtype)
-    k = mix(1) @ p.wk.to(x.dtype)
-    v = mix(2) @ p.wv.to(x.dtype)
+    r = partition.shard_ff(mix(0) @ p.wr.to(x.dtype))
+    k = partition.shard_ff(mix(1) @ p.wk.to(x.dtype))
+    v = partition.shard_ff(mix(2) @ p.wv.to(x.dtype))
     logw = -torch.exp(torch.clamp(
         p.w0 + torch.tanh(mix(3).float() @ p.wA) @ p.wB, -8.0, 1.0))
     g = F.silu(mix(4) @ p.wg.to(x.dtype))
@@ -386,6 +386,6 @@ def rwkv_channel_mix(p: RWKVChannel, x: torch.Tensor, x_prev=None):
     mu = p.mu.to(x.dtype)
     xk = x + mu[0] * (shifted - x)
     xr = x + mu[1] * (shifted - x)
-    k = torch.square(torch.relu(xk @ p.w_in.to(x.dtype)))
+    k = torch.square(torch.relu(partition.shard_ff(xk @ p.w_in.to(x.dtype))))
     out = torch.sigmoid(xr @ p.w_recept.to(x.dtype)) * (k @ p.w_out.to(x.dtype))
     return out, x[:, -1:, :]

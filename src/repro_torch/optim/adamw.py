@@ -6,8 +6,9 @@ parameter, in float32, ``m = b1 m + (1 - b1) g``, ``v = b2 v + (1 - b2)
 g^2``, ``p = p - lr * ((m / bc1) / (sqrt(v / bc2) + eps) + wd * p)``, with
 ``b2 = 0.95`` and decay on every parameter.  ``torch.optim.AdamW`` decays
 before the step and places ``eps`` differently, so it is no substitute.
-Moments are kept in the parameter dtype; a parameter without a gradient
-steps with a zero one, as every JAX leaf does.  The bias corrections divide
+Moments are kept in the parameter dtype and allocated with the optimizer,
+as the JAX ``AdamWState`` is; a parameter without a gradient steps with a
+zero one, as every JAX leaf does.  The bias corrections divide
 as tensors on the parameter's device: CUDA multiplies by the reciprocal of
 a Python or CPU scalar divisor, XLA divides.
 """
@@ -25,6 +26,10 @@ class AdamW(torch.optim.Optimizer):
         super().__init__(params, dict(b1=b1, b2=b2, eps=eps,
                                       weight_decay=weight_decay))
         self.step_count = 0      # the JAX AdamWState.step
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p] = {"m": torch.zeros_like(p),
+                                 "v": torch.zeros_like(p)}
 
     @torch.no_grad()
     def step(self, lr) -> None:
@@ -41,11 +46,7 @@ class AdamW(torch.optim.Optimizer):
                     bc[p.device] = ((1.0 - b1 ** t).to(p.device),
                                     (1.0 - b2 ** t).to(p.device))
                 c1, c2 = bc[p.device]
-                state = self.state[p]
-                if not state:
-                    state["m"] = torch.zeros_like(p)
-                    state["v"] = torch.zeros_like(p)
-                m, v = state["m"], state["v"]
+                m, v = self.state[p]["m"], self.state[p]["v"]
                 gf = (torch.zeros_like(p) if p.grad is None else p.grad).float()
                 m_new = b1 * m.float() + (1 - b1) * gf
                 v_new = b2 * v.float() + (1 - b2) * gf.square()

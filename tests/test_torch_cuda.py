@@ -1,6 +1,6 @@
-"""The port's histogram kernel, training path and LM substrate on the card:
-``chip_smoke.py``'s phases as tests.  They skip without a card; on a
-machine with one H100 (no JAX needed):
+"""The port's histogram kernel, training path, LM substrate and dry-run
+on the card: ``chip_smoke.py``'s phases as tests.  They skip without a
+card; on a machine with one H100 (no JAX needed):
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -67,3 +67,17 @@ def test_lm_smoke_configs_on_card(smoke):
     JAX logits (phase 6c)."""
     chip_smoke, device = smoke
     assert chip_smoke.phase_lm_smoke(device) <= chip_smoke.LM_SMOKE_ATOL_RWKV
+
+
+@pytest.mark.cuda
+def test_dryrun_and_production_grid_on_card(smoke):
+    """The dry-run's one-card case (phase 8a: a real SmolLM-135M train
+    step's FLOPs equal the ``meta`` count, its state and peak memory agree)
+    and the FedGBF production-grid sweep (8c: every meter reconciled,
+    trees equal ``local-cuda``'s, parties x shards launches a level)."""
+    chip_smoke, device = smoke
+    card = chip_smoke.card_line()
+    out = chip_smoke.phase_dryrun_card(device, card)
+    assert abs(out["peak_ratio"] - 1) <= chip_smoke.PEAK_RTOL
+    launches = chip_smoke.phase_dryrun_fedgbf(device, card)
+    assert launches["histogram_round"] == launches["histogram_sort"] > 0
