@@ -52,9 +52,21 @@ package.  Phases, each of which raises on failure (exit code 1):
       counted; the first 4,096 margins equal the JAX margins bit for bit,
       and every served row's margin is within ``margin_delta_bound`` of
       the f32 model's.
+3c. Seeded draws (``core/prng.py``, the JAX package's ``jax.random``):
+   ``random_bits``, ``uniform``, ``permutation``, ``normal`` and
+   ``categorical`` on the card ``torch.equal`` to the same calls on CPU
+   tensors, batched keys, at n in {1, 23, 21000, 150016, 1048576}; the
+   reference run's 78 (sample, feature) mask pairs drawn from
+   ``PRNGKey(0)`` on the card, equal to the committed
+   ``dynamic_fedgbf_r20_train.npz`` (the draw's wall printed); then the
+   reference run trained on ``local-cuda`` with no masks input: exactly 60
+   histogram launches, and phase 4's checks against the committed
+   checkpoint (trees exact, leaves, metrics and final margins within
+   1e-5).
 4. Training main path: ``train_fedgbf(dynamic_fedgbf_config(rounds=20),
    backend="local-cuda")`` on ``default_credit_card`` (21,000 x 23) with
-   the committed JAX-drawn masks: exactly 60 histogram launches (and 60
+   the committed JAX-drawn masks as an explicit input: exactly 60
+   histogram launches (and 60
    sorts), bin edges
    and the 78 trees' features and thresholds equal to the committed
    checkpoint, leaves within 1e-5, per-round train metrics within 1e-5 of
@@ -62,15 +74,16 @@ package.  Phases, each of which raises on failure (exit code 1):
    trees and margins.  The model is saved, loaded and serves 65,536
    requests through ``fused-cuda``; its first 4,096 margins must equal the
    committed JAX margins bit for bit.
-   b. GOSS: the same run with ``sampling="goss"`` and native draws from
-      seed 0: 60 histogram launches, trees, leaves and margins
+   b. GOSS: the same run with ``sampling="goss"`` and the draws of
+      ``PRNGKey(0)``: 60 histogram launches, trees, leaves and margins
       ``torch.equal`` to ``backend="local"`` on the card, the GOSS
       invariants on every round, the round wall beside 4's.
-   c. Kill and resume: 4's run stopped after round 8, its train state
-      saved and loaded, rounds 9-20 trained from the stored margins: the
-      packed ensemble and final margins equal 4's.
+   c. Kill and resume: 4's run from ``PRNGKey(0)`` (no masks input)
+      stopped after round 8, its train state saved and loaded, rounds 9-20
+      trained from the stored margins and the same key: the packed
+      ensemble and final margins equal 4's.
    d. Federated: ``vfl-histogram`` with 4 parties as column blocks (the
-      23 features padded to 24, native masks from seed 0): 240 histogram
+      23 features padded to 24, masks from ``PRNGKey(0)``): 240 histogram
       launches (one a party a level), trees, leaves, final margins and
       the test rows' ``fused-cuda`` scores ``torch.equal`` to a
       ``local-cuda`` run on the same columns and masks, the wire-byte
@@ -93,24 +106,25 @@ package.  Phases, each of which raises on failure (exit code 1):
    providers (the single-tree entry point) and with the staged provider
    (``histogram_dispatch("cuda")``); both must build the ``local-cuda``
    round's trees.
-6. The launchers (``python -m repro_torch.launch.*``, five chains side
+6. The launchers (``python -m repro_torch.launch.*``, six chains side
    by side): ``train_fedgbf`` killed after round 3 of 6 and resumed
    (``--checkpoint-every 2``) ends in the uninterrupted run's train state;
-   ``--sampling goss`` trains; ``vfl-histogram`` trains under the chaos
-   flags and party dropout with the gradient-less fallback, and
+   ``--sampling goss`` trains; at its defaults (no ``--masks``) it saves
+   the committed checkpoint's trees; ``vfl-histogram`` trains under the
+   chaos flags and party dropout with the gradient-less fallback, and
    ``vfl-histogram-sharded`` over ``--data-shards 2``; ``serve_fedgbf
    --save`` hands a model to ``serve_fedgbf --checkpoint ... --quantize 8
    --metrics-port 0``, which scrapes its own endpoint.
-6b. The LM substrate at full width: SmolLM-135M (``get_config``, 30
-   layers, d 576, 9/3 heads, vocab 49152, f32 params, bf16 compute),
-   native init from seed 0: ``launch.train``'s path for 30 steps at batch
-   8 x seq 256 (every ce finite, the last 10 steps' mean below the first
-   10's; tokens/s); one f32 train step at 2 x 64 from the same weights on
-   the card and on the CPU (loss and grad norm within ``LM_PARITY_RTOL``);
+6b. The LM substrate at full width: SmolLM-135M (``get_config``, 30 layers,
+   d 576, 9/3 heads, vocab 49152, f32 params, bf16 compute), the JAX init from
+   ``PRNGKey(0)``: ``launch.train``'s path for 30 steps at batch 8 x seq 256
+   (every ce finite, the last 10 steps' mean below the first 10's; tokens/s);
+   one f32 train step at 2 x 64 from the same weights on the card and on the
+   CPU (loss and grad norm within ``LM_PARITY_RTOL``);
    ``launch.serve.generate`` on the trained model (batch 4, prompt 32, 32
    greedy tokens; decode tokens/s), and in f32 every decode step's logits
-   within 1e-3 of the full forward's; ``torch.profiler`` over two train
-   steps and eight decode steps (device busy share, launches a step).
+   within 1e-3 of the full forward's; ``torch.profiler`` over two train steps
+   and eight decode steps (device busy share, launches a step).
 6c. Every architecture's smoke config (and mixtral's at window 8) forward
    and token-by-token decode on the card in f32, on the seeded numpy
    weights, within 1e-4 of the committed JAX logits (RWKV 5e-4;
@@ -845,10 +859,10 @@ def phase_goss_hist_kernels(device) -> float:
     (``torch.equal``), two launches equal.  Returns the max |diff|."""
     import torch
 
-    from repro_torch.core import forest
+    from repro_torch.core import forest, prng
 
     rng = np.random.default_rng(14)
-    gen = torch.Generator().manual_seed(14)
+    key = prng.PRNGKey(14, device)
     n, d, num_bins, n_trees = 21000, 23, 32, 5
     err = 0.0
     for rho in GOSS_RHO:
@@ -860,9 +874,10 @@ def phase_goss_hist_kernels(device) -> float:
                 t = hist_inputs(rng, n, d, num_bins,
                                 2 * nodes if child else nodes, n_trees, k,
                                 device)
+                key, sub = prng.split(key).unbind(0)
                 t["w"] = forest.goss_weights(
-                    t["g"], torch.rand((n_trees, n), generator=gen).to(
-                        device), n_top, n_rand).contiguous()
+                    t["g"], prng.uniform(sub, (n_trees, n)), n_top,
+                    n_rand).contiguous()
                 check(set(t["w"].unique().tolist()) <= {0.0, 1.0, amplify},
                       "GOSS weights in {0, 1, amplify}")
                 kernel, plain, _, _ = _hist_call("round", t, nodes, num_bins,
@@ -935,6 +950,140 @@ def _same_trees(model_a, model_b) -> bool:
                for f in ("feature", "threshold", "gain", "leaf_weight"))
 
 
+def check_reference_run(label, model, history, launches, ckpt, metrics_ref,
+                        margin_ref, wall_note):
+    """Phase 4's checks of a 20-round reference run: 60 round-histogram
+    launches and sorts, the committed checkpoint's 78 trees (bin edges,
+    features and thresholds exact, leaves within ``TRAIN_ATOL``), the JAX
+    history's train metrics and final margins within ``TRAIN_ATOL``.
+    Returns the packed model."""
+    import torch
+
+    from repro_torch.core.types import pack_ensemble
+
+    check(launches["histogram_round"] == REF_HIST_LAUNCHES,
+          f"{label}: {launches['histogram_round']} round-histogram launches "
+          f"== {REF_HIST_LAUNCHES}")
+    check(launches["histogram_sort"] == REF_HIST_LAUNCHES,
+          f"{label}: {launches['histogram_sort']} sorts == "
+          f"{REF_HIST_LAUNCHES}")
+    packed = pack_ensemble(model)
+    check(packed.total_trees == REF_TREES, f"{label}: {REF_TREES} trees")
+    check(packed.round_offsets == ckpt.round_offsets,
+          f"{label}: round structure")
+    check(torch.equal(packed.bin_edges, ckpt.bin_edges),
+          f"{label}: bin edges equal the checkpoint's")
+    check(torch.equal(packed.feature, ckpt.feature)
+          and torch.equal(packed.threshold, ckpt.threshold),
+          f"{label}: all 78 trees equal the checkpoint in feature and "
+          "threshold")
+    leaf_diff = float((packed.leaf_weight - ckpt.leaf_weight).abs().max())
+    check(leaf_diff <= TRAIN_ATOL, f"{label}: leaves within {TRAIN_ATOL} "
+          f"(max |diff| {leaf_diff})")
+    keys = ("auc", "acc", "f1", "loss")
+    got = np.array([[r[k] for k in keys] for r in history.train])
+    metric_diff = float(np.abs(got - metrics_ref).max())
+    check(got.shape == metrics_ref.shape and metric_diff <= TRAIN_ATOL,
+          f"{label}: per-round train metrics within {TRAIN_ATOL} of the JAX "
+          f"history (max |diff| {metric_diff})")
+    margin_diff = float(np.abs(history.final_margin - margin_ref).max())
+    check(margin_diff <= TRAIN_ATOL, f"{label}: final margins within "
+          f"{TRAIN_ATOL} (max |diff| {margin_diff})")
+    print(f"{label}: {REF_ROUNDS} rounds, {packed.total_trees} trees in "
+          f"{wall_note}; launches {launches}; trees == checkpoint, leaves "
+          f"max |diff| {leaf_diff:.3g}, metrics max |diff| "
+          f"{metric_diff:.3g}, final margins max |diff| {margin_diff:.3g}, "
+          f"final train {history.train[-1]}")
+    print(f"{label} wall per round (ms): " + " ".join(
+        f"{1e3 * w:.2f}" for w in history.wall_time_s))
+    return packed
+
+
+#: phase 3c: the draws held card == CPU at these sizes (the reference
+#: run's d, its n, the production grid's padded n, a serving stream's)
+DRAW_SIZES = (1, 23, 21000, 150016, 1048576)
+DRAW_KEYS = 3              # keys in a batch up to 150,016 (1 beyond)
+
+
+def phase_seeded_draws(device, card) -> dict:
+    """Phase 3c: the JAX package's random streams on the card; see the
+    module docstring."""
+    import torch
+
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.core import boosting, forest, prng
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.histogram import ops
+
+    def both(fn, key, *args):
+        """fn on the card's and on the CPU's copy of ``key``."""
+        got = fn(key.to(device), *args)
+        torch.cuda.synchronize()
+        return got, fn(key, *args)
+
+    root = prng.PRNGKey(20)
+    for n in DRAW_SIZES:
+        keys = prng.split(prng.fold_in(root, n), DRAW_KEYS if n <= 150016
+                          else 1)
+        logits = prng.normal(prng.fold_in(root, n + 1), (2, n)) * 3.0
+        cases = {
+            "random_bits": (prng.random_bits, keys, (n,)),
+            "uniform": (prng.uniform, keys, (n,)),
+            "uniform bf16": (lambda k, m: prng.uniform(
+                k, m, dtype=torch.bfloat16), keys, (n,)),
+            "permutation": (prng.permutation, keys, n),
+            "normal": (prng.normal, keys, (n,)),
+            "categorical": (lambda k, lg: prng.categorical(k, lg.to(
+                k.device)), keys[0], logits),
+            "categorical bf16": (lambda k, lg: prng.categorical(k, lg.to(
+                k.device, torch.bfloat16)), keys[0], logits),
+        }
+        for name, (fn, key, arg) in cases.items():
+            card_out, cpu_out = both(fn, key, arg)
+            check(card_out.device.type == "cuda", f"{name} drawn on the card")
+            check(torch.equal(card_out.cpu(), cpu_out),
+                  f"{name} n={n}: card == CPU")
+        print(f"seeded draws n={n}: random_bits, uniform (f32, bf16), "
+              f"permutation, normal, categorical (f32, bf16 logits) over "
+              f"{keys.shape[0]} key(s): card == CPU, bit for bit")
+
+    # the reference run's 78 mask pairs, drawn on the card
+    ds = synthetic.load("default_credit_card")
+    n, d = ds.x_train.shape
+    cfg = boosting.dynamic_fedgbf_config(rounds=REF_ROUNDS)
+    oracle, metrics_ref, margin_ref = load_train_oracle(device)
+    draw_ms = []
+    for _ in range(3):    # the first call includes the CUDA context's warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masks = forest.draw_step_masks(cfg, n, d, prng.PRNGKey(0, device))
+        torch.cuda.synchronize()
+        draw_ms.append((time.perf_counter() - t0) * 1e3)
+    check(masks.sample.device.type == "cuda", "masks drawn on the card")
+    check(torch.equal(masks.sample, oracle.sample)
+          and torch.equal(masks.feature, oracle.feature),
+          f"the {REF_TREES} mask pairs from PRNGKey(0) == the committed "
+          "JAX masks")
+    print(f"seeded draws: {REF_TREES} (sample, feature) mask pairs of "
+          f"{n} x {d} from PRNGKey(0) on {card}: == the committed JAX masks; "
+          f"draw wall {' / '.join(f'{ms:.2f}' for ms in draw_ms)} ms "
+          f"(calls 1-3)")
+
+    # the reference run from the key alone
+    ckpt = ckpt_io.load_ensemble(str(CHECKPOINT), device=device)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    model, history = boosting.train_fedgbf(
+        ds.x_train, ds.y_train, cfg, prng.PRNGKey(0), backend="local-cuda",
+        device=device)
+    wall = time.perf_counter() - t0
+    launches = {name: ops.kernel_launches(name) for name in ops.KERNELS}
+    check_reference_run("train seeded (no masks)", model, history, launches,
+                        ckpt, metrics_ref, margin_ref,
+                        f"{wall:.3f} s (the first training call) on {card}")
+    return {"launches": launches, "draw_ms": draw_ms}
+
+
 def phase_train(device, card) -> dict:
     """The training main path through ``local-cuda``; see the module
     docstring, phase 4."""
@@ -943,7 +1092,6 @@ def phase_train(device, card) -> dict:
     from repro_torch.checkpoint import io as ckpt_io
     from repro_torch.core import backend as backend_mod
     from repro_torch.core import boosting
-    from repro_torch.core.types import pack_ensemble
     from repro_torch.data import synthetic
     from repro_torch.kernels.histogram import ops
 
@@ -955,43 +1103,13 @@ def phase_train(device, card) -> dict:
     ops.reset_launches()
     t0 = time.perf_counter()
     model, history = boosting.train_fedgbf(
-        ds.x_train, ds.y_train, cfg, masks, backend="local-cuda",
+        ds.x_train, ds.y_train, cfg, masks=masks, backend="local-cuda",
         device=device)
     wall = time.perf_counter() - t0
     launches = {name: ops.kernel_launches(name) for name in ops.KERNELS}
-    check(launches["histogram_round"] == REF_HIST_LAUNCHES,
-          f"{launches['histogram_round']} round-histogram launches == "
-          f"{REF_HIST_LAUNCHES}")
-    check(launches["histogram_sort"] == REF_HIST_LAUNCHES,
-          f"{launches['histogram_sort']} sorts == {REF_HIST_LAUNCHES}")
-    packed = pack_ensemble(model)
-    check(packed.total_trees == REF_TREES, f"{REF_TREES} trees")
-    check(packed.round_offsets == ckpt.round_offsets, "round structure")
-    check(torch.equal(packed.bin_edges, ckpt.bin_edges),
-          "bin edges equal the checkpoint's")
-    check(torch.equal(packed.feature, ckpt.feature)
-          and torch.equal(packed.threshold, ckpt.threshold),
-          "all 78 trees equal the checkpoint in feature and threshold")
-    leaf_diff = float((packed.leaf_weight - ckpt.leaf_weight).abs().max())
-    check(leaf_diff <= TRAIN_ATOL, f"leaves within {TRAIN_ATOL} "
-          f"(max |diff| {leaf_diff})")
-    keys = ("auc", "acc", "f1", "loss")
-    got = np.array([[r[k] for k in keys] for r in history.train])
-    metric_diff = float(np.abs(got - metrics_ref).max())
-    check(got.shape == metrics_ref.shape and metric_diff <= TRAIN_ATOL,
-          f"per-round train metrics within {TRAIN_ATOL} of the JAX history "
-          f"(max |diff| {metric_diff})")
-    margin_diff = float(np.abs(history.final_margin - margin_ref).max())
-    check(margin_diff <= TRAIN_ATOL, f"final margins within {TRAIN_ATOL} "
-          f"(max |diff| {margin_diff})")
-    print(f"train local-cuda on {card}: {REF_ROUNDS} rounds, "
-          f"{packed.total_trees} trees in {wall:.3f} s (first call, kernel "
-          f"built); launches {launches}; trees == checkpoint, leaves max "
-          f"|diff| {leaf_diff:.3g}, metrics max |diff| {metric_diff:.3g}, "
-          f"final margins max |diff| {margin_diff:.3g}, final train "
-          f"{history.train[-1]}")
-    print("train wall per round (ms): " + " ".join(
-        f"{1e3 * w:.2f}" for w in history.wall_time_s))
+    packed = check_reference_run("train local-cuda (masks input)", model,
+                                 history, launches, ckpt, metrics_ref,
+                                 margin_ref, f"{wall:.3f} s on {card}")
 
     # a second run, its histogram calls timed per level: same model again
     timer = LevelTimer()
@@ -1003,7 +1121,8 @@ def phase_train(device, card) -> dict:
             ops.compute_round_histogram_cuda_fused_child, child=True))
     t0 = time.perf_counter()
     model2, history2 = boosting.train_fedgbf(
-        ds.x_train, ds.y_train, cfg, masks, backend=timed, device=device)
+        ds.x_train, ds.y_train, cfg, masks=masks, backend=timed,
+        device=device)
     wall2 = time.perf_counter() - t0
     torch.cuda.synchronize()
     check(_same_trees(model, model2)
@@ -1063,8 +1182,8 @@ def _walls_ms(history) -> str:
 def phase_goss_train(device, card, uniform_history) -> dict:
     """Phase 4b: GOSS training on the card.  ``train_fedgbf(
     dynamic_fedgbf_config(rounds=20, sampling="goss"), backend="local-
-    cuda")`` on the full ``default_credit_card`` training set with native
-    draws from seed 0 (drawn on the CPU): exactly 60 round-histogram
+    cuda")`` on the full ``default_credit_card`` training set with the
+    draws of ``PRNGKey(0)`` (drawn on the card): exactly 60 round-histogram
     launches; trees, leaves and final margins equal (``torch.equal``) to
     the same draws run through ``backend="local"`` on the card; on every
     round the GOSS invariants: the weight-1 rows are the ``n_top``
@@ -1074,7 +1193,7 @@ def phase_goss_train(device, card, uniform_history) -> dict:
     import torch
 
     from repro_torch.core import backend as backend_mod
-    from repro_torch.core import boosting, dynamic, forest
+    from repro_torch.core import boosting, dynamic, forest, prng
     from repro_torch.data import synthetic
     from repro_torch.kernels.histogram import ops
 
@@ -1091,15 +1210,15 @@ def phase_goss_train(device, card, uniform_history) -> dict:
     ds = synthetic.load("default_credit_card")
     n, d = ds.x_train.shape
     cfg = boosting.dynamic_fedgbf_config(rounds=REF_ROUNDS, sampling="goss")
-    draws = forest.draw_step_masks(cfg, n, d,
-                                   torch.Generator().manual_seed(0))
-    check(draws.uniform.device.type == "cpu", "GOSS draws made on the CPU")
+    draws = forest.draw_step_masks(cfg, n, d, prng.PRNGKey(0, device))
+    check(draws.uniform.device == device, "GOSS draws made on the card")
     local_cuda = backend_mod.get_backend("local-cuda")
     recording = Recording(**{f.name: getattr(local_cuda, f.name)
                              for f in dataclasses.fields(local_cuda)})
     ops.reset_launches()
     model, history = boosting.train_fedgbf(
-        ds.x_train, ds.y_train, cfg, draws, backend=recording, device=device)
+        ds.x_train, ds.y_train, cfg, masks=draws, backend=recording,
+        device=device)
     torch.cuda.synchronize()
     launches = {name: ops.kernel_launches(name) for name in ops.KERNELS}
     check(launches["histogram_round"] == REF_HIST_LAUNCHES,
@@ -1122,7 +1241,8 @@ def phase_goss_train(device, card, uniform_history) -> dict:
             check(int((w[t] != 0).sum()) >= n_top + n_rand,
                   f"round {m}: at least n_top + n_rand rows weigh")
     local, local_history = boosting.train_fedgbf(
-        ds.x_train, ds.y_train, cfg, draws, backend="local", device=device)
+        ds.x_train, ds.y_train, cfg, masks=draws, backend="local",
+        device=device)
     check(_same_trees(model, local),
           "GOSS local-cuda trees and leaves == local on the card")
     check(np.array_equal(history.final_margin, local_history.final_margin),
@@ -1140,16 +1260,17 @@ def phase_goss_train(device, card, uniform_history) -> dict:
 
 
 def phase_resume(device, card, train) -> dict:
-    """Phase 4c: kill and resume the reference run.  Rounds [0, 8) with
-    the committed JAX masks, ``save_train_state``, ``load_train_state``,
-    then [8, 20) from the stored margins: the stitched ``PackedEnsemble``
+    """Phase 4c: kill and resume the reference run.  Rounds [0, 8) from
+    ``PRNGKey(0)`` (no masks input), ``save_train_state``,
+    ``load_train_state``, then [8, 20) from the stored margins and the same
+    key (the window replays the key chain): the stitched ``PackedEnsemble``
     equal, array for array, to the uninterrupted run's (phase 4), so the
     committed checkpoint's 78 trees; final margins bit-equal; 60
     round-histogram launches in all."""
     import torch
 
     from repro_torch.checkpoint import io as ckpt_io
-    from repro_torch.core import boosting
+    from repro_torch.core import boosting, prng
     from repro_torch.core.types import (
         PACKED_ARRAYS,
         EnsembleModel,
@@ -1162,7 +1283,7 @@ def phase_resume(device, card, train) -> dict:
     kw = dict(backend="local-cuda", device=device)
     ops.reset_launches()
     first, h1 = boosting.train_fedgbf(train["x_train"], train["y_train"],
-                                      cfg, train["masks"],
+                                      cfg, prng.PRNGKey(0, device),
                                       stop_round=RESUME_AT, **kw)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "state")
@@ -1171,7 +1292,8 @@ def phase_resume(device, card, train) -> dict:
         state = ckpt_io.load_train_state(path, device=device)
     check(state["completed_rounds"] == RESUME_AT, "state round count")
     rest, h2 = boosting.train_fedgbf(train["x_train"], train["y_train"], cfg,
-                                     train["masks"], start_round=RESUME_AT,
+                                     prng.PRNGKey(0, device),
+                                     start_round=RESUME_AT,
                                      init_margin=state["margin"], **kw)
     torch.cuda.synchronize()
     launches = {name: ops.kernel_launches(name) for name in ops.KERNELS}
@@ -1221,8 +1343,8 @@ def _padded_credit(parties: int):
 def phase_vfl_train(device, card) -> dict:
     """Phase 4d: vertically federated training with 4 parties as column
     blocks on the card, ``dynamic_fedgbf_config(rounds=20)`` on
-    ``default_credit_card`` padded to 24 features, native masks from seed 0
-    drawn for 24 columns:
+    ``default_credit_card`` padded to 24 features, masks drawn from
+    ``PRNGKey(0)`` for 24 columns:
 
     * ``vfl-histogram``: exactly 4 x 60 = 240 round-histogram launches (one
       per party per level, each on its 21000 x 6 block); trees, leaves and
@@ -1233,7 +1355,8 @@ def phase_vfl_train(device, card) -> dict:
       scored once through ``fused-cuda``, equal to the ``local-cuda``
       model's scores; the round wall beside ``local-cuda``'s;
     * ``vfl-argmax``: 240 launches, trees equal to ``local-cuda``;
-    * ``vfl-histogram-q8`` with native draws: trains (finite margins),
+    * ``vfl-histogram-q8`` with the JAX rounding keys: trains (finite
+      margins),
       240 launches, the ledger reconciled, its histogram bytes (int8
       payload + scales) the wire model's and under the raw run's;
     * one party's launch (21000 x 6, the 5 trees of round 1, level 0)
@@ -1241,7 +1364,7 @@ def phase_vfl_train(device, card) -> dict:
     import torch
 
     from repro_torch.core import backend as backend_mod
-    from repro_torch.core import boosting, forest
+    from repro_torch.core import boosting, forest, prng
     from repro_torch.core.types import pack_ensemble
     from repro_torch.federation import compress, protocol
     from repro_torch.kernels.ensemble_predict import ops as ep_ops
@@ -1252,14 +1375,14 @@ def phase_vfl_train(device, card) -> dict:
     n = x_train.shape[0]
     cfg = boosting.dynamic_fedgbf_config(rounds=REF_ROUNDS)
     tree = cfg.tree
-    masks = forest.draw_step_masks(cfg, n, d,
-                                   torch.Generator().manual_seed(0))
+    masks = forest.draw_step_masks(cfg, n, d, prng.PRNGKey(0, device))
     want_launches = VFL_PARTIES * REF_HIST_LAUNCHES
 
     def train(backend):
         ops.reset_launches()
         model, history = boosting.train_fedgbf(
-            x_train, y_train, cfg, masks, backend=backend, device=device)
+            x_train, y_train, cfg, masks=masks, backend=backend,
+            device=device)
         torch.cuda.synchronize()
         return model, history, {k: ops.kernel_launches(k)
                                 for k in ops.KERNELS}
@@ -1427,7 +1550,7 @@ SHARD_WINDOW = 5           # rounds of the sharded run held against the CPU
 
 def phase_vfl_runtime(device, card, vfl) -> dict:
     """Phase 4e: the rest of the federation on phase 4d's cell (4 parties,
-    21,000 x 24, native masks from seed 0), each run's launches counted
+    21,000 x 24, masks from ``PRNGKey(0)``), each run's launches counted
     from 0:
 
     * chaos: ``vfl-histogram-chaos`` and ``vfl-argmax-topk-chaos`` under
@@ -1457,7 +1580,7 @@ def phase_vfl_runtime(device, card, vfl) -> dict:
     import torch
 
     from repro_torch.core import backend as backend_mod
-    from repro_torch.core import boosting, dynamic
+    from repro_torch.core import boosting, dynamic, prng
     from repro_torch.core.types import pack_ensemble
     from repro_torch.federation import chaos as chaos_mod
     from repro_torch.federation import (compress, gradientless, protocol,
@@ -1477,7 +1600,8 @@ def phase_vfl_runtime(device, card, vfl) -> dict:
     def train(label, backend, dev=device, **kw):
         ops.reset_launches()
         model, history = boosting.train_fedgbf(
-            x_train, y_train, cfg, masks, backend=backend, device=dev, **kw)
+            x_train, y_train, cfg, masks=masks, backend=backend, device=dev,
+            **kw)
         if dev == device:
             torch.cuda.synchronize()
         launches[label] = ops.kernel_launches("histogram_round")
@@ -1601,7 +1725,8 @@ def phase_vfl_runtime(device, card, vfl) -> dict:
     ops.reset_launches()
     t0 = time.perf_counter()
     gl_packed, info = gradientless.train_gradientless(
-        x_train, y_train, cfg, VFL_PARTIES, meter=meter, device=device)
+        x_train, y_train, cfg, prng.PRNGKey(1000), VFL_PARTIES, meter=meter,
+        device=device)
     torch.cuda.synchronize()
     gl_s = time.perf_counter() - t0
     launches["gradientless"] = ops.kernel_launches("histogram_round")
@@ -1752,7 +1877,7 @@ def _launch(argv: list, want: str, env: dict) -> str:
 
 
 def phase_launchers(device) -> None:
-    """Phase 6, the launchers, in five chains run side by side (both
+    """Phase 6, the launchers, in six chains run side by side (both
     launchers default to cuda):
 
     * ``train_fedgbf --rounds 6 --checkpoint P --checkpoint-every 2
@@ -1760,6 +1885,10 @@ def phase_launchers(device) -> None:
     * ``train_fedgbf --rounds 6 --checkpoint Q``, uninterrupted: P's
       packed model and margins must equal Q's;
     * ``train_fedgbf --rounds 3 --sampling goss``;
+    * ``train_fedgbf --checkpoint R`` at its defaults (20 rounds, the full
+      ``default_credit_card``, no ``--masks``: the draws of
+      ``PRNGKey(0)``): R's packed model must be the committed checkpoint
+      (trees exact, leaves within ``TRAIN_ATOL``);
     * ``train_fedgbf --backend vfl-histogram --parties 4`` with the chaos
       flags, ``--party-dropout 0.5 --retry-max 0 --dropout-fallback
       gradientless`` (every party degraded in some round), then
@@ -1776,8 +1905,8 @@ def phase_launchers(device) -> None:
     train, serve_cli = ("repro_torch.launch.train_fedgbf",
                         "repro_torch.launch.serve_fedgbf")
     with tempfile.TemporaryDirectory() as tmp:
-        part, whole, saved = (os.path.join(tmp, f)
-                              for f in ("part", "whole", "saved"))
+        part, whole, saved, ref = (os.path.join(tmp, f)
+                                   for f in ("part", "whole", "saved", "ref"))
         chunked = [train, "--rounds", "6", "--checkpoint", part,
                    "--checkpoint-every", "2"]
         chains = {
@@ -1789,6 +1918,8 @@ def phase_launchers(device) -> None:
                                 whole], "checkpoint: 6 rounds")],
             "goss": [([train, "--rounds", "3", "--sampling", "goss"],
                       "sampling=goss")],
+            "defaults": [([train, "--checkpoint", ref],
+                          "checkpoint: 20 rounds")],
             "federation runtime": [
                 ([train, "--rounds", "3", "--backend", "vfl-histogram",
                   "--parties", "4", "--chaos-drop", "0.05",
@@ -1820,6 +1951,22 @@ def phase_launchers(device) -> None:
                     print(f"  {line}")
         resumed = ckpt_io.load_train_state(part, device=device)
         straight = ckpt_io.load_train_state(whole, device=device)
+        defaults = ckpt_io.load_train_state(ref, device=device)["packed"]
+    committed = ckpt_io.load_ensemble(str(CHECKPOINT), device=device)
+    check(defaults.round_offsets == committed.round_offsets
+          and defaults.total_trees == REF_TREES,
+          f"launcher defaults: {REF_TREES} trees, the checkpoint's rounds")
+    for f in ("bin_edges", "feature", "threshold"):
+        check(torch.equal(getattr(defaults, f), getattr(committed, f)),
+              f"launcher defaults: {f} == the committed checkpoint's")
+    leaf_diff = float((defaults.leaf_weight
+                       - committed.leaf_weight).abs().max())
+    check(leaf_diff <= TRAIN_ATOL, f"launcher defaults: leaves within "
+          f"{TRAIN_ATOL} of the committed checkpoint's (max |diff| "
+          f"{leaf_diff})")
+    print(f"launchers: train_fedgbf at its defaults (no --masks) saved the "
+          f"committed checkpoint's {REF_TREES} trees, leaves max |diff| "
+          f"{leaf_diff:.3g}")
     check(resumed["completed_rounds"] == straight["completed_rounds"] == 6,
           "both states hold 6 rounds")
     for f in PACKED_ARRAYS:
@@ -1869,14 +2016,15 @@ def _lm_decode_error(model, tokens) -> float:
 
 def phase_lm_full(device, card) -> dict:
     """Phase 6b: SmolLM-135M at full width (30 layers, d 576, 9/3 heads,
-    vocab 49152; f32 params, bf16 compute), native init from seed 0.
+    vocab 49152; f32 params, bf16 compute), the JAX init from
+    ``PRNGKey(0)``, drawn on the card.
 
     * ``launch.train``'s path: 30 steps at batch 8 x seq 256 of
       ``MarkovZipfSource`` batches; every ce finite, the mean of the last
       10 below the mean of the first 10; tokens/s over steps 11-30.
     * One train step at batch 2 x seq 64 in f32 (TF32 off) from the same
-      weights on the card and on the CPU: loss and grad norm within
-      ``LM_PARITY_RTOL``.
+      weights (``PRNGKey(1)``, drawn on the card) on the card and on the
+      CPU: loss and grad norm within ``LM_PARITY_RTOL``.
     * ``launch.serve.generate`` on the trained model: batch 4, prompt 32,
       32 greedy tokens, timed on its second call (every step one
       ``decode_step`` over the batch); then in f32, every decode step's
@@ -1886,6 +2034,7 @@ def phase_lm_full(device, card) -> dict:
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.core import prng
     from repro_torch.data import tokens as tokens_mod
     from repro_torch.launch import serve as serve_mod, train as train_mod
     from repro_torch.models import train as lm_train
@@ -1912,14 +2061,14 @@ def phase_lm_full(device, card) -> dict:
 
     # one f32 step from the same weights, on the card and on the CPU
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    cpu_model = LMModel(cfg32, "cpu", torch.Generator().manual_seed(1))
-    card_model = copy.deepcopy(cpu_model).to(device)
+    card_model = LMModel(cfg32, device, prng.PRNGKey(1))
+    cpu_model = copy.deepcopy(card_model).to("cpu")
     raw = next(tokens_mod.batches(cfg.vocab, *LM_PARITY_SHAPE, seed=1,
                                   num_batches=1))
     step = lm_train.make_train_step(cfg32)
     got = {}
     for where, model in (("cpu", cpu_model), ("card", card_model)):
-        state = lm_train.init_train_state(cfg32, model=model)
+        state = lm_train.init_train_state(None, cfg32, model=model)
         _, m = step(state, train_mod.to_device(raw, model.embed.tokens.device))
         got[where] = (float(m["loss"]), float(m["grad_norm"]))
     rel = [abs(a - b) / abs(b) for a, b in zip(got["card"], got["cpu"])]
@@ -2095,6 +2244,7 @@ def phase_dryrun_card(device, card) -> dict:
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.core import prng
     from repro_torch.data import tokens as tokens_mod
     from repro_torch.launch import dryrun, shapes, train as train_mod
     from repro_torch.launch.mesh import AbstractMesh, HBM_BYTES
@@ -2118,8 +2268,7 @@ def phase_dryrun_card(device, card) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
-    state = lm_train.init_train_state(cfg, device,
-                                      torch.Generator().manual_seed(0))
+    state = lm_train.init_train_state(prng.PRNGKey(0), cfg, device)
     raw = next(tokens_mod.batches(cfg.vocab, spec.global_batch, spec.seq_len,
                                   seed=0, num_batches=1))
     batch = train_mod.to_device(raw, device)
@@ -2537,7 +2686,7 @@ def phase_train_profile(device) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        boosting.train_fedgbf(ds.x_train, ds.y_train, cfg, masks,
+        boosting.train_fedgbf(ds.x_train, ds.y_train, cfg, masks=masks,
                               backend="local-cuda", device=device)
         wall_ms = (time.perf_counter() - t0) * 1e3
     times = device_times(prof)
@@ -2579,13 +2728,14 @@ def main() -> int:
     launches = dict(main_path["launches"])
     for kernel, count in phase_quantized(device, card, main_path).items():
         launches[kernel] += count
+    seeded = phase_seeded_draws(device, card)
     train = phase_train(device, card)
     # every training run's round histograms (each sorting first): the
-    # uniform reference run, GOSS, the reference run killed and resumed,
-    # and the 4-party vfl-histogram run
+    # reference run from the key and from the masks, GOSS, the reference
+    # run killed and resumed, and the 4-party vfl-histogram run
     vfl = phase_vfl_train(device, card)
     launches["ensemble_predict_raw"] += vfl["score_launches"]
-    runs = (train["launches"],
+    runs = (seeded["launches"], train["launches"],
             phase_goss_train(device, card, train["history"])["launches"],
             phase_resume(device, card, train)["launches"],
             vfl["launches"])
@@ -2621,7 +2771,8 @@ def main() -> int:
                                 "score the test rows",
         "ensemble_predict_binned": "serve cuda, 65,536 requests each of "
                                    "the f32, int8 and int16 checkpoints",
-        "histogram_round": "train_fedgbf local-cuda, 20 rounds: uniform, "
+        "histogram_round": "train_fedgbf local-cuda, 20 rounds: uniform "
+                           "from PRNGKey(0) and from the committed masks, "
                            "GOSS, and uniform killed after 8 and resumed; "
                            "vfl-histogram, 4 parties, one launch a party "
                            "a level; its chaos, party-dropout, "

@@ -4,11 +4,10 @@
   gives its fields as numpy arrays (``np.asarray`` of each) and its static
   metadata as plain values; the checkpoint loader and the tests that feed
   one model to both packages go through it.
-* ``masks_from_numpy``: the sampling masks of a training run.  The JAX
-  package draws them with ``jax.random`` under threefry, which torch cannot
-  reproduce, so a run that must build the JAX package's trees takes its
-  masks: (S, n) sample and (S, d) feature masks, one row per scheduled
-  tree build in build order.
+* ``masks_from_numpy``: explicit sampling masks of a training run, (S, n)
+  sample and (S, d) feature masks, one row per scheduled tree build in
+  build order (``train_fedgbf(masks=...)``, an override of the draw from
+  the run key).
 * ``goss_draws_from_numpy``: GOSS's draws, the (S, n) uniforms and (S, d)
   feature masks the JAX package draws from each build's key.
 * ``quantized_from_numpy``: a ``QuantizedEnsemble``, as the checkpoint
@@ -217,6 +216,13 @@ def lm_params_from_numpy(cfg, tree: dict, device=None) -> LMModel:
     its parameter's dtype)."""
     dev = resolve(device)
     model = LMModel(cfg, device="meta").to_empty(device=dev)
+    load_lm_tree(model, tree)
+    return model
+
+
+def load_lm_tree(model: LMModel, tree: dict) -> None:
+    """Copy the JAX nested parameter dict ``tree`` into ``model``'s
+    parameters through ``jax_leaves`` (the one mapping)."""
     flat = dict(_flatten(tree))
     with torch.no_grad():
         for path, params in model.jax_leaves():
@@ -232,7 +238,6 @@ def lm_params_from_numpy(cfg, tree: dict, device=None) -> LMModel:
                 p.copy_(part)
     if flat:
         raise ValueError(f"unexpected parameter leaves: {sorted(flat)}")
-    return model
 
 
 def lm_params_from_leaves(cfg, leaves: list, device=None) -> LMModel:

@@ -2,16 +2,18 @@
 counterpart of ``repro/core/boosting.py``.
 
 Training: ``train_fedgbf`` is one eager engine with the JAX package's scan
-engine's contract (``boosting.py:499-832``): the masks of all S scheduled
-tree builds are taken (or drawn) up front, the rounds run in the segments
-of ``_plan_segments`` (constant forest width, shared-root crossover), the
-shared-root buffer width comes from ``_root_delta_rows``/``_delta_bucket``,
-metrics are evaluated on the rounds ``eval_every`` and the final round
-select, and the history carries the exact final margins.  GOSS forms each
-round's weight masks from that round's gradients and its draws
-(``forest.goss_weights``); ``start_round``/``stop_round``/``init_margin``
-train a window of the full schedule, so a run stopped and resumed from a
-train-state checkpoint stitches to the uninterrupted run's ensemble.
+engine's contract (``boosting.py:499-832``): the masks of all S scheduled tree
+builds are drawn up front from the run key, by the JAX key chain and in one
+batched draw (``forest.draw_step_masks``), or taken as an input; the rounds run
+in the segments of ``_plan_segments`` (constant forest width, shared-root
+crossover), the shared-root buffer width comes from
+``_root_delta_rows``/``_delta_bucket``, metrics are evaluated on the rounds
+``eval_every`` and the final round select, and the history carries the exact
+final margins.  GOSS forms each round's weight masks from that round's
+gradients and its draws (``forest.goss_weights``);
+``start_round``/``stop_round``/``init_margin`` train a window of the full
+schedule, so a run stopped and resumed from a train-state checkpoint stitches
+to the uninterrupted run's ensemble.
 
 The margin update reproduces the reference's arithmetic: XLA's CPU backend
 folds ``y_hat + lr * mean(per_tree)`` into ``fma(sum(per_tree), lr * (1 /
@@ -38,6 +40,7 @@ from repro_torch.core import backend as backend_mod
 from repro_torch.core import binning, dynamic
 from repro_torch.core import forest as forest_mod
 from repro_torch.core import objective as objective_mod
+from repro_torch.core import prng
 from repro_torch.core import tree as tree_mod
 from repro_torch.core.fma import fma
 from repro_torch.core.types import (
@@ -205,8 +208,9 @@ def train_fedgbf(
     x,
     y,
     cfg: FedGBFConfig,
-    masks: Union[forest_mod.StepMasks, forest_mod.GossDraws, None] = None,
+    rng: Optional[torch.Tensor] = None,
     *,
+    masks: Union[forest_mod.StepMasks, forest_mod.GossDraws, None] = None,
     x_valid=None,
     y_valid=None,
     backend: Union[str, backend_mod.TreeBackend, None] = None,
@@ -226,12 +230,16 @@ def train_fedgbf(
     Args:
       x, y: (n, d) features and (n,) labels (arrays or tensors).
       cfg: the training configuration.
-      masks: every scheduled build's masks, (S, n) and (S, d), in build
-        order — e.g. the JAX package's draws through
-        ``convert.masks_from_numpy``; under ``sampling="goss"`` a
-        ``forest.GossDraws`` instead (``convert.goss_draws_from_numpy``).
-        None draws them natively with ``forest.draw_step_masks`` from seed
-        0.  Always the FULL schedule's, also for a window.
+      rng: the run key (``prng.PRNGKey``; None = ``PRNGKey(0)``): every
+        scheduled build's masks (GOSS: draws) are drawn from it as the JAX
+        package draws them (``forest.draw_step_masks``), on ``device``.
+        The full schedule's keys are derived also for a window, so a
+        resumed run draws the uninterrupted run's masks.
+      masks: an explicit override of that draw: every scheduled build's
+        masks, (S, n) and (S, d), in build order (e.g.
+        ``convert.masks_from_numpy``); under ``sampling="goss"`` a
+        ``forest.GossDraws`` (``convert.goss_draws_from_numpy``).  Always
+        the FULL schedule's, also for a window.
       backend: a registry name (``"local"``, ``"local-cuda"``, a
         ``vfl-*`` name: 2 parties, ``cfg.tree``) or a ``TreeBackend``
         (e.g. ``get_backend("vfl-histogram", tree=cfg.tree,
@@ -298,8 +306,8 @@ def train_fedgbf(
     sched, flat = dynamic.flat_schedule(cfg)
     n_steps = len(flat.round_of_step)
     if masks is None:
-        masks = forest_mod.draw_step_masks(cfg, n, d,
-                                           torch.Generator().manual_seed(0))
+        rng = prng.PRNGKey(0) if rng is None else prng.as_key(rng)
+        masks = forest_mod.draw_step_masks(cfg, n, d, rng.to(dev))
     want = forest_mod.GossDraws if use_goss else forest_mod.StepMasks
     if not isinstance(masks, want):
         raise TypeError(f"sampling={cfg.sampling!r} takes "

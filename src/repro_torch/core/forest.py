@@ -2,22 +2,22 @@
 3-7) — the counterpart of ``repro/core/forest.py``.
 
 The N trees of a round share (g, h) and differ only in their sampling
-masks P_m(j), Q_m(j) (eq. 4).  The JAX package draws those masks with
-``jax.random.permutation`` under threefry, which torch cannot reproduce, so
-masks are an explicit input here: ``StepMasks`` holds one (sample,
-feature) pair per scheduled tree build.  A run that must match the JAX
-package takes the masks the JAX package drew (``convert.masks_from_numpy``);
-otherwise ``draw_step_masks`` draws them natively from an explicit
-``torch.Generator``, with the JAX package's exact keep-counts but not its
-draws.
+masks P_m(j), Q_m(j) (eq. 4).  They are drawn as the JAX package draws
+them, from the same keys (``core/prng.py``, its ``jax.random``): each
+tree slot's key is ``fold_in(round_key, slot)``, split into a sample key
+and a feature key, and ``permutation(key, n) < n_keep`` places exactly
+``n_keep`` ones.  ``StepMasks`` holds one (sample, feature) pair per
+scheduled tree build; ``draw_step_masks`` draws all of a run's in one
+batched call, from the key chain the JAX scan engine derives
+(``step_keys``).  An explicit ``StepMasks`` (e.g. ``convert.masks_from_numpy``)
+overrides the draw.
 
 GOSS (``sampling="goss"``) weighs the rows of each round from that round's
 gradients, so its masks cannot be drawn up front.  Its random inputs can:
 ``GossDraws`` holds one uniform vector (n,) and one feature mask per
-scheduled build (the JAX package's ``jax.random.uniform`` and permutation
-of the same per-slot key; ``convert.goss_draws_from_numpy``), and
-``goss_weights`` turns a round's gradients and draws into the weight masks
-exactly as ``goss_masks_from_keys`` does.
+scheduled build (``uniform`` and ``permutation`` of the same per-slot
+key), and ``goss_weights`` turns a round's gradients and draws into the
+weight masks exactly as ``goss_masks_from_keys`` does.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import dynamic
+from repro_torch.core import dynamic, prng
 from repro_torch.core import tree as tree_mod
 from repro_torch.core.types import TreeArrays, TreeConfig
 
@@ -59,56 +59,101 @@ def sample_keep_count(n: int, rho_id: float) -> int:
     return max(1, int(round(n * rho_id)))
 
 
-def sample_masks(generator: torch.Generator, n: int, d: int, n_trees: int,
-                 n_keep: int, d_keep: int) -> tuple[torch.Tensor,
-                                                    torch.Tensor]:
-    """Exact-count masks for ``n_trees`` trees: ``randperm(n) < n_keep``
-    places exactly ``n_keep`` ones uniformly at random (and ``d_keep`` for
-    the features).  Drawn on the CPU from ``generator``.
+def fold_in_keys(rng: torch.Tensor, indices) -> torch.Tensor:
+    """Per-tree keys ``fold_in(rng, t)`` for every ``t`` in ``indices``:
+    (K, 2).  Prefix-stable in the tree count, so any subset of slots draws
+    exactly the masks a full round draws."""
+    return prng.fold_in(rng, torch.as_tensor(indices, device=rng.device))
+
+
+def masks_from_keys(keys: torch.Tensor, n: int, d: int, n_keep,
+                    d_keep: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact-count masks from per-tree keys (K, 2), in one batched draw:
+    each key splits into a sample and a feature key, and
+    ``permutation(key, n) < n_keep`` places exactly ``n_keep`` ones.
+    ``n_keep`` is an int or a (K,) vector.
 
     Returns:
-      sample_mask (n_trees, n) float32 in {0, 1}, feature_mask (n_trees, d)
-      bool.
+      sample_mask (K, n) float32 in {0, 1}, feature_mask (K, d) bool.
     """
-    smask = torch.stack([torch.randperm(n, generator=generator) < n_keep
-                         for _ in range(n_trees)]).to(torch.float32)
-    fmask = torch.stack([torch.randperm(d, generator=generator) < d_keep
-                         for _ in range(n_trees)])
+    ks, kf = _split_pair(keys)
+    n_keep = torch.as_tensor(n_keep, device=keys.device).reshape(-1, 1)
+    smask = (prng.permutation(ks, n) < n_keep).to(torch.float32)
+    fmask = prng.permutation(kf, d) < d_keep
     return smask, fmask
 
 
+def _split_pair(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    pair = prng.split(keys)
+    return pair[..., 0, :], pair[..., 1, :]
+
+
+def sample_masks_counts(rng: torch.Tensor, n: int, d: int, n_trees: int,
+                        n_keep, d_keep: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``sample_masks`` with explicit keep-counts."""
+    return masks_from_keys(fold_in_keys(rng, torch.arange(n_trees)), n, d,
+                           n_keep, d_keep)
+
+
+def sample_masks(rng: torch.Tensor, n: int, d: int, n_trees: int,
+                 rho_id: float, rho_feat: float
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact-count subsampling masks of one round's ``n_trees`` trees from
+    the round key ``rng``: ``n * rho_id`` rows and ``d * rho_feat``
+    features each, without replacement (eq. 4)."""
+    return sample_masks_counts(rng, n, d, n_trees,
+                               sample_keep_count(n, rho_id),
+                               feature_keep_count(d, rho_feat))
+
+
+def step_keys(rng: torch.Tensor, cfg) -> torch.Tensor:
+    """Every scheduled build's key, (S, 2), in build order, as the JAX scan
+    engine derives them (``repro/core/boosting.py:577-590``): one split of
+    ``rng`` a round (the loop's stream, so round m's key is the same in a
+    window that starts later), then ``fold_in(round_key, slot)``.  The
+    chain runs on the CPU (20 tiny splits); the keys then go to ``rng``'s
+    device."""
+    key = rng.cpu()
+    round_keys = []
+    for _ in range(cfg.rounds):
+        pair = prng.split(key)
+        key = pair[0]
+        round_keys.append(pair[1])
+    _, flat = dynamic.flat_schedule(cfg)
+    keys = prng.fold_in(torch.stack(round_keys)[
+        torch.as_tensor(flat.round_of_step, dtype=torch.int64)],
+        torch.as_tensor(flat.tree_in_round, dtype=torch.int64))
+    return keys.to(rng.device)
+
+
 def draw_step_masks(cfg, n: int, d: int,
-                    generator: torch.Generator) -> StepMasks | GossDraws:
-    """Every scheduled build's masks (GOSS: its draws), up front, on the
-    CPU: the native sampler.  Round m's trees keep ``sample_keep_count(n,
-    rho_id(m))`` rows and ``feature_keep_count(d, rho_feat)`` features
-    each; under GOSS each build draws ``torch.rand(n)`` and then its
-    feature mask."""
+                    rng: torch.Tensor) -> StepMasks | GossDraws:
+    """Every scheduled build's masks (GOSS: its draws) from the run key
+    ``rng`` (``step_keys``), in one batched draw on ``rng``'s device:
+    round m's trees keep ``sample_keep_count(n, rho_id(m))`` rows and
+    ``feature_keep_count(d, rho_feat)`` features each.  Equal to the JAX
+    package's masks for the same key, and the same on the CPU and the
+    card."""
+    keys = step_keys(rng, cfg)
+    d_keep = feature_keep_count(d, cfg.rho_feat)
     if cfg.sampling == "goss":
-        return draw_goss_draws(cfg, n, d, generator)
-    d_keep = feature_keep_count(d, cfg.rho_feat)
-    smasks, fmasks = [], []
-    for m in range(1, cfg.rounds + 1):
-        s, f = sample_masks(
-            generator, n, d, dynamic.n_trees_schedule(cfg, m),
-            sample_keep_count(n, dynamic.rho_id_schedule(cfg, m)), d_keep)
-        smasks.append(s)
-        fmasks.append(f)
-    return StepMasks(torch.cat(smasks), torch.cat(fmasks))
+        return goss_draws_from_keys(keys, n, d, d_keep)
+    _, flat = dynamic.flat_schedule(cfg)
+    n_keep = torch.tensor([sample_keep_count(n, dynamic.rho_id_schedule(
+        cfg, m)) for m in range(1, cfg.rounds + 1)], dtype=torch.int64)[
+        torch.as_tensor(flat.round_of_step, dtype=torch.int64)]
+    return StepMasks(*masks_from_keys(keys, n, d, n_keep.to(rng.device),
+                                      d_keep))
 
 
-def draw_goss_draws(cfg, n: int, d: int,
-                    generator: torch.Generator) -> GossDraws:
-    """GOSS's draws for every scheduled build, from ``generator`` on the
-    CPU (so a run on the card and one on the CPU see the same draws)."""
-    d_keep = feature_keep_count(d, cfg.rho_feat)
-    n_steps = sum(dynamic.n_trees_schedule(cfg, m)
-                  for m in range(1, cfg.rounds + 1))
-    uniform, feature = [], []
-    for _ in range(n_steps):
-        uniform.append(torch.rand(n, generator=generator))
-        feature.append(torch.randperm(d, generator=generator) < d_keep)
-    return GossDraws(torch.stack(uniform), torch.stack(feature))
+def goss_draws_from_keys(keys: torch.Tensor, n: int, d: int,
+                         d_keep: int) -> GossDraws:
+    """GOSS's random inputs from per-tree keys: ``uniform(sample_key,
+    (n,))`` and the uniform path's feature mask of the same key."""
+    ks, kf = _split_pair(keys)
+    return GossDraws(prng.uniform(ks, (n,)),
+                     prng.permutation(kf, d) < d_keep)
 
 
 def goss_counts(n: int, rho_id: float, top_share: float) -> tuple[int, int]:
@@ -165,6 +210,25 @@ def goss_weights(g: torch.Tensor, uniform: torch.Tensor, n_top: int,
                / torch.tensor(float(max(n_rand, 1)), dtype=torch.float32))
     return is_top.to(torch.float32) + is_rand.to(torch.float32) * float(
         amplify)
+
+
+def goss_masks_from_keys(keys: torch.Tensor, g: torch.Tensor, d: int,
+                         n_top: int, n_rand: int, d_keep: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """GOSS weight masks (K, n) and feature masks (K, d) from per-tree
+    keys: the ``n_top`` largest-|g| rows at weight 1, ``n_rand`` of the
+    rest by each key's uniforms at ``(n - n_top) / n_rand``
+    (``goss_weights``)."""
+    draws = goss_draws_from_keys(keys, g.shape[0], d, d_keep)
+    return goss_weights(g, draws.uniform, n_top, n_rand), draws.feature
+
+
+def goss_masks(rng: torch.Tensor, g: torch.Tensor, d: int, n_trees: int,
+               n_top: int, n_rand: int, d_keep: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``goss_masks_from_keys`` over a round key."""
+    return goss_masks_from_keys(fold_in_keys(rng, torch.arange(n_trees)),
+                                g, d, n_top, n_rand, d_keep)
 
 
 def build_forest_per_tree(binned: torch.Tensor, g: torch.Tensor,

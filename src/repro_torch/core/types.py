@@ -12,9 +12,8 @@ All tree structures are *fixed-topology complete binary trees* of static depth
 
 Tensors replace the JAX arrays; everything else keeps its field names and
 defaults, so a model moves between the packages field by field
-(``repro_torch.convert``).  ``QuantizedEnsemble``'s stochastic rounding
-takes its uniforms as an input (the JAX package draws ``jax.random`` bits,
-which torch cannot reproduce) or draws them from a ``torch.Generator``.
+(``repro_torch.convert``).  ``quantize_ensemble``'s stochastic rounding
+draws the JAX package's uniforms from the same key (``core/prng.py``).
 """
 
 from __future__ import annotations
@@ -301,23 +300,26 @@ class QuantizedEnsemble:
 
 
 def quantize_ensemble(packed: PackedEnsemble, bits: int = 8,
-                      uniform: torch.Tensor | None = None,
-                      stochastic: bool = True,
-                      generator: torch.Generator | None = None
+                      key: torch.Tensor | None = None,
+                      stochastic: bool = True, *,
+                      uniform: torch.Tensor | None = None
                       ) -> QuantizedEnsemble:
     """Quantize a packed ensemble for serving (int8/int16 tables).
 
     The leaf table goes through ``federation.compress.quantize_stats`` as a
     (T, L, K) block (K = 1 for a scalar table), one scale per tree and
-    channel.  ``uniform`` (that shape) is the stochastic rounding's noise,
-    e.g. the JAX package's ``jax.random.uniform(key, (T, L, K))``; None
-    draws it from ``generator`` (default: seed 0) on the CPU.  A narrowing
-    that loses a feature or threshold id raises.
+    channel.  The stochastic rounding's noise is ``uniform(key, (T, L,
+    K))``, ``key`` defaulting to ``PRNGKey(0)`` as in the JAX package;
+    ``uniform`` (that shape) overrides it.  A narrowing that loses a
+    feature or threshold id raises.
     """
+    from repro_torch.core import prng
     from repro_torch.federation import compress
 
     if bits not in (8, 16):
         raise ValueError(f"bits must be 8 or 16, got {bits}")
+    if key is None:
+        key = prng.PRNGKey(0)
     num_bins = packed.bin_edges.shape[1] + 1
     thr_dtype = torch.int8 if num_bins <= 126 else torch.int16
     feature = packed.feature.to(torch.int16)
@@ -328,9 +330,8 @@ def quantize_ensemble(packed: PackedEnsemble, bits: int = 8,
         raise ValueError(f"bin thresholds do not fit {thr_dtype}")
     lw = packed.leaf_weight
     lw3 = lw[..., None] if lw.dim() == 2 else lw  # (T, L, K)
-    q, scale = compress.quantize_stats(lw3, bits, uniform,
-                                       stochastic=stochastic,
-                                       generator=generator)
+    q, scale = compress.quantize_stats(lw3, bits, key, stochastic,
+                                       uniform=uniform)
     if lw.dim() == 2:
         q, scale = q[..., 0], scale[..., 0]      # (T, L), (T,)
     return QuantizedEnsemble(

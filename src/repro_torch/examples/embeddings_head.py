@@ -5,8 +5,9 @@ technique and the LM substrate compose: the port of
 Party A (the embedding provider) runs a frozen SmolLM-family model over
 text and holds its mean-pooled hidden states; party B (the label holder)
 has repayment labels.  FedGBF trains on the vertically joined table.  The
-LM's weights are a native draw from seed 0 (the JAX script draws them with
-threefry), so the features, and the AUC, differ from the JAX script's.
+LM's weights are the JAX script's ``init_params(PRNGKey(0), cfg)`` and the
+head's masks its ``PRNGKey(2)`` draws (``core/prng.py``); the embeddings
+themselves sit within the LM's float tolerance of the JAX script's.
 
     PYTHONPATH=src python -m repro_torch.examples.embeddings_head \
         [--device cpu]
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_smoke_config
-from repro_torch.core import boosting, metrics
+from repro_torch.core import boosting, metrics, prng
 from repro_torch.core.types import TreeConfig
 from repro_torch.data import tokens as tokens_mod
 from repro_torch.device import resolve
@@ -37,7 +38,7 @@ def main(device="cuda", n: int = 2000, seq: int = 32,
 
     # --- party A: a frozen LM producing sequence embeddings
     cfg = get_smoke_config("smollm-135m")
-    model = LMModel(cfg, device, torch.Generator().manual_seed(0))
+    model = LMModel(cfg, device, prng.PRNGKey(0))
     src = tokens_mod.MarkovZipfSource(cfg.vocab, seed=1)
     toks = np.stack([src.sample(rng, seq) for _ in range(n)])
 
@@ -65,7 +66,8 @@ def main(device="cuda", n: int = 2000, seq: int = 32,
     cfg_fg = boosting.dynamic_fedgbf_config(
         rounds=rounds, tree=TreeConfig(max_depth=3, num_bins=16))
     head, _ = boosting.train_fedgbf(feats[:k], labels[:k], cfg_fg,
-                                    backend="local-cuda", device=device)
+                                    prng.PRNGKey(2), backend="local-cuda",
+                                    device=device)
     x_test = torch.from_numpy(feats[k:]).to(device)
     rep = metrics.classification_report(
         torch.from_numpy(labels[k:]).to(device),

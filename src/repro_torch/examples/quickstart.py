@@ -5,8 +5,9 @@ quality and the paper's runtime bounds: the port of
     PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cpu]
 
 Training runs on ``local-cuda`` (the histogram kernel; on CPU tensors its
-plain version) and scoring on ``fused-cuda``; the masks are native draws
-from seed 0 (the JAX script's are threefry draws, so the models differ).
+plain version) and scoring on ``fused-cuda``; the masks are drawn from
+``PRNGKey(0)``, as the JAX script draws them, so the models are the JAX
+script's.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import argparse
 
 import torch
 
-from repro_torch.core import boosting, explain, metrics, runtime_model
+from repro_torch.core import (boosting, explain, metrics, prng,
+                              runtime_model)
 from repro_torch.data import synthetic, tabular
 from repro_torch.device import resolve
 
@@ -34,13 +36,14 @@ def main(device="cuda", n: int = 10_000, rounds: int = 15) -> dict:
     #    round, sample rate 0.1 -> 0.3 (the paper's schedules).
     cfg = boosting.dynamic_fedgbf_config(rounds=rounds)
     model, _ = boosting.train_fedgbf(ds.x_train, ds.y_train, cfg,
-                                     backend="local-cuda", device=device,
-                                     verbose=True)
+                                     prng.PRNGKey(0), backend="local-cuda",
+                                     device=device, verbose=True)
 
     # 3. Baseline: SecureBoost == FedGBF degenerated to 1 tree / round.
     sb_cfg = boosting.secureboost_config(rounds=rounds)
     sb_model, _ = boosting.train_fedgbf(ds.x_train, ds.y_train, sb_cfg,
-                                        backend="local-cuda", device=device)
+                                        prng.PRNGKey(0), backend="local-cuda",
+                                        device=device)
 
     # 4. Compare quality (the paper's Tables 2-3 metrics).
     out = {}

@@ -12,10 +12,8 @@ the masking algebra on a broadcast; the quantized transport ships ~5x
 fewer histogram bytes.
 
 The secure-aggregation masks come from ``secure.pairwise_masks``, whose PRF
-terms are inputs to the port (the JAX package draws them with threefry,
-which the port does not reproduce): here a seeded torch draw
-(``secure.native_prf``).  The masks differ from the JAX script's; that they
-cancel exactly does not.
+terms are the JAX package's draws from the same seed, so the masks equal
+the JAX script's.
 
     PYTHONPATH=src python -m repro_torch.examples.vfl_credit_scoring \
         [--device cpu]
@@ -28,7 +26,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import boosting, metrics
+from repro_torch.core import boosting, metrics, prng
 from repro_torch.core.types import TreeConfig
 from repro_torch.data import synthetic, tabular
 from repro_torch.device import resolve
@@ -76,7 +74,8 @@ def main(device="cuda", n: int = 8_000, rounds: int = 8) -> list:
                                        aggregation=aggregation,
                                        transport=transport, meter=meter)
         model, _ = boosting.train_fedgbf(x_train, ds.y_train, run_cfg,
-                                         backend=backend, device=device)
+                                         prng.PRNGKey(0), backend=backend,
+                                         device=device)
         rep = metrics.classification_report(
             y_t, boosting.predict(model, x_t, impl="fused-cuda"))
         # measured bytes: every exchange meters its payload; the ledger

@@ -2,11 +2,9 @@
 counterpart of ``repro/federation/compress.py``.
 
 * The quantization codec (``quantize_stats`` / ``dequantize_stats``).  The
-  JAX package draws its stochastic-rounding noise with
-  ``jax.random.uniform`` under threefry, which torch cannot reproduce, so
-  the noise is an input here: ``uniform`` (the JAX package's draws, for
-  parity) or drawn from an explicit ``torch.Generator`` on the CPU.
-  ``jnp.round`` and ``torch.round`` both round half to even.
+  stochastic-rounding noise is ``uniform(key, x.shape)``, the JAX
+  package's draw (``core/prng.py``); explicit ``uniform`` draws override
+  it.  ``jnp.round`` and ``torch.round`` both round half to even.
 * ``TransportSpec``: the wire format of the per-level exchange — raw
   float32, int8/int16 histogram payloads plus per-(node, feature,
   channel) scales (``quantized_round_histogram_fn``; the count channel is
@@ -23,11 +21,13 @@ counterpart of ``repro/federation/compress.py``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import torch
 
 from repro_torch.core import histogram as hist_mod
+from repro_torch.core import prng
 from repro_torch.core import split as split_mod
 from repro_torch.core.types import TreeConfig
 from repro_torch.federation import aggregator
@@ -45,7 +45,7 @@ class TransportSpec:
     ``kind``: ``"raw"`` (float32 payloads), ``"quantized"`` (int``bits``
     histogram payload + float32 scales; histogram aggregation only) or
     ``"topk"`` (``k`` best candidates per node per party; argmax
-    aggregation only).  ``seed`` roots the native rounding draws."""
+    aggregation only).  ``seed`` roots the rounding draws' keys."""
 
     kind: str = "raw"
     bits: int = 8
@@ -77,9 +77,9 @@ TOPK = TransportSpec(kind="topk", k=4)
 
 
 def quantize_stats(x: torch.Tensor, bits: int,
+                   key: torch.Tensor | None = None,
+                   stochastic: bool = True, *,
                    uniform: torch.Tensor | None = None,
-                   stochastic: bool = True,
-                   generator: torch.Generator | None = None,
                    reciprocal: bool = False
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Quantize stats to int``bits`` along the second-last axis.
@@ -87,10 +87,11 @@ def quantize_stats(x: torch.Tensor, bits: int,
     Args:
       x: (..., B, C) float32.
       bits: 8 or 16.
-      uniform: (..., B, C) float32 draws in [0, 1) for stochastic rounding
-        (floor(x/s + u)); None draws them with ``torch.rand`` from
-        ``generator`` (default: seed 0) on the CPU.
+      key: the key of the stochastic-rounding noise, ``uniform(key,
+        x.shape)`` (floor(x/s + u)), drawn on ``x``'s device.
       stochastic: stochastic rounding, else round half to even.
+      uniform: explicit (..., B, C) float32 draws in [0, 1) in place of
+        the key's.
       reciprocal: form the scale as ``absmax`` times the float32
         reciprocal of ``qmax``, as XLA compiles the division by that
         constant inside a jitted program (the JAX package's transport);
@@ -115,9 +116,11 @@ def quantize_stats(x: torch.Tensor, bits: int,
     y = x / scale
     if stochastic:
         if uniform is None:
-            if generator is None:
-                generator = torch.Generator().manual_seed(0)
-            uniform = torch.rand(tuple(x.shape), generator=generator)
+            if key is None:
+                raise ValueError("stochastic rounding needs a key or "
+                                 "uniform draws")
+            uniform = prng.uniform(prng.as_key(key, x.device),
+                                   tuple(x.shape))
         y = torch.floor(y + uniform.to(device=x.device, dtype=torch.float32))
     else:
         y = torch.round(y)
@@ -135,29 +138,23 @@ def dequantize_stats(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 # Rounding draws
 # ---------------------------------------------------------------------------
 #: ``draws(level, num_nodes, party, shape) -> (shape) float32 uniforms`` in
-#: [0, 1): the stochastic-rounding noise of one party's payload at one
-#: level.  The JAX package keys it ``fold_in(fold_in(fold_in(PRNGKey(seed),
-#: level), num_nodes), party)``, independent of the round and of the
-#: training key; parity tests pass those draws.
+#: [0, 1): an explicit override of the stochastic-rounding noise of one
+#: party's payload at one level (the caller moves it to the device).
 Draws = Callable[[int, int, int, tuple], torch.Tensor]
 
-_MIX = 1_000_003
 
-
-def native_draws(seed: int = 0) -> Draws:
-    """The port's own draws: ``torch.rand`` on the CPU from a generator
-    seeded by (seed, level, num_nodes, party), so a run on the card and one
-    on the CPU round the same way; the caller moves them to the device."""
-
-    def draws(level: int, num_nodes: int, party: int,
-              shape: tuple) -> torch.Tensor:
-        key = seed
-        for v in (level, num_nodes, party):
-            key = (key * _MIX + v) % (1 << 63)
-        return torch.rand(shape, generator=torch.Generator().manual_seed(
-            key))
-
-    return draws
+@functools.lru_cache(maxsize=4096)
+def transport_key(seed: int, level: int, num_nodes: int,
+                  party: int) -> tuple[int, int]:
+    """The rounding key of one party's payload at one level, as the JAX
+    transport folds it: ``fold_in(fold_in(fold_in(PRNGKey(seed), level),
+    num_nodes), party)`` — the level too, since subtraction and compaction
+    make levels share a width.  Independent of the round and of the
+    training key, so it is derived once on the CPU and cached."""
+    key = prng.PRNGKey(seed)
+    for v in (level, num_nodes, party):
+        key = prng.fold_in(key, v)
+    return int(key[0]), int(key[1])
 
 
 # ---------------------------------------------------------------------------
@@ -354,18 +351,17 @@ def quantized_round_histogram_fn(
     local) with one scale per (tree, node, feature, channel), the int
     payloads ride ``gather`` (the exchange seam) and the scales a plain
     gather, and the merged histogram is dequantized with a zero count
-    channel.  ``draws`` supplies each party's rounding noise per (level,
-    num_nodes, party) (default ``native_draws(transport.seed)``); shared
-    root (``root_delta_rows``) is applied before quantization.  The scales
-    are ``absmax`` times the float32 ``1 / qmax``: the JAX transport runs
-    inside a jitted program, where XLA turns the division by the constant
+    channel.  Each party's rounding noise is ``uniform(transport_key(seed,
+    level, num_nodes, party), shape)``, all parties' in one batched draw on the
+    payload's device; ``draws`` overrides it per (level, num_nodes, party).
+    Shared root (``root_delta_rows``) is applied before quantization.  The
+    scales are ``absmax`` times the float32 ``1 / qmax``: the JAX transport
+    runs inside a jitted program, where XLA turns the division by the constant
     into that product."""
     if transport.kind != "quantized":
         raise ValueError(f"need a quantized TransportSpec, got {transport!r}")
     if gather is None:
         gather = aggregator.plain_gather
-    if draws is None:
-        draws = native_draws(transport.seed)
 
     def fn(blocks, g, h, weight, assign, num_nodes, num_bins, level=0,
            **kw):
@@ -373,12 +369,21 @@ def quantized_round_histogram_fn(
         locals_ = aggregator._local_histograms(
             base_fn, blocks, g, h, weight, assign, num_nodes, num_bins,
             dict(kw, level=level))
+        shape = tuple(locals_[0][..., :-1].shape)
+        uniforms = [None] * len(locals_)
+        if transport.stochastic and draws is not None:
+            uniforms = [draws(level, num_nodes, p, shape)
+                        for p in range(len(locals_))]
+        elif transport.stochastic:
+            keys = torch.tensor(
+                [transport_key(transport.seed, level, num_nodes, p)
+                 for p in range(len(locals_))], device=locals_[0].device)
+            uniforms = prng.uniform(keys, shape)
         for party, local in enumerate(locals_):
-            payload = local[..., :-1]
-            uniform = (draws(level, num_nodes, party, tuple(payload.shape))
-                       if transport.stochastic else None)
-            q, scale = quantize_stats(payload, transport.bits, uniform,
-                                      transport.stochastic, reciprocal=True)
+            q, scale = quantize_stats(local[..., :-1], transport.bits,
+                                      stochastic=transport.stochastic,
+                                      uniform=uniforms[party],
+                                      reciprocal=True)
             qs.append(q)
             scales.append(scale)
         if meter is not None:

@@ -20,13 +20,12 @@ removes those messages instead of encrypting them.
   phases are identically zero (``wire_cost``), and a ``MessageMeter``
   records the actual margin and rate tensors.
 
-The JAX package draws each party's masks from ``fold_in(rng, p)``
-(threefry), so here they are an input: one ``StepMasks`` (or
-``GossDraws``) per party, or native draws from a CPU generator per party.
-The rate fit runs in float32 with ``torch.autograd.grad`` in place of
-``jax.grad``, in the JAX update order; XLA's and torch's reductions differ
-in the last ulp, which over 300 steps leaves the rates within about 1e-6
-relative of the JAX package's (ROADMAP §3).
+Each party's fit draws its masks from ``fold_in(rng, p)``, the JAX package's
+stream (``core/prng.py``), so the per-party trees are the JAX package's;
+explicit per-party masks override the draw.  The rate fit runs in float32 with
+``torch.autograd.grad`` in place of ``jax.grad``, in the JAX update order;
+XLA's and torch's reductions differ in the last ulp, which over 300 steps
+leaves the rates within about 1e-6 relative of the JAX package's (ROADMAP §3).
 """
 
 from __future__ import annotations
@@ -36,14 +35,11 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.core import binning, boosting
-from repro_torch.core import forest as forest_mod
 from repro_torch.core import objective as objective_mod
+from repro_torch.core import prng
 from repro_torch.core import tree as tree_mod
 from repro_torch.core.types import FedGBFConfig, PackedEnsemble, pack_ensemble
 from repro_torch.device import resolve
-
-_MIX = 1_000_003
-
 
 def _party_slices(d: int, num_parties: int) -> list:
     if d % num_parties:
@@ -52,16 +48,6 @@ def _party_slices(d: int, num_parties: int) -> list:
             "pad columns with data.tabular.pad_features")
     d_party = d // num_parties
     return [slice(p * d_party, (p + 1) * d_party) for p in range(num_parties)]
-
-
-def native_party_masks(cfg: FedGBFConfig, n: int, d_party: int, party: int,
-                       seed: int = 0):
-    """One party's masks for its local fit, drawn on the CPU from a
-    generator seeded by ``(seed, party)``: ``StepMasks`` (``GossDraws``
-    under GOSS) for ``d_party`` columns."""
-    return forest_mod.draw_step_masks(cfg, n, d_party, torch.Generator()
-                                      .manual_seed((seed * _MIX + party)
-                                                   % (1 << 63)))
 
 
 def _combine(w: torch.Tensor, margins: torch.Tensor,
@@ -106,6 +92,7 @@ def train_gradientless(
     x,
     y,
     cfg: FedGBFConfig,
+    rng: torch.Tensor,
     num_parties: int,
     masks: Optional[Sequence] = None,
     scale_steps: int = 300,
@@ -113,16 +100,15 @@ def train_gradientless(
     meter=None,
     backend="local-cuda",
     device=None,
-    seed: int = 0,
 ) -> tuple[PackedEnsemble, dict]:
     """Train the gradient-less party-local ensemble (module docstring).
 
     Args:
       x, y: (n, d) features (d divisible by ``num_parties``) and labels.
-      masks: one ``StepMasks`` (``GossDraws`` under GOSS) per party, for
-        its ``d / num_parties`` columns — e.g. the JAX package's draws of
-        ``fold_in(rng, p)``; None draws them natively
-        (``native_party_masks`` from ``seed``).
+      rng: the run key (``prng.PRNGKey``); party p's fit draws from
+        ``fold_in(rng, p)``, so parties stay independent.
+      masks: an explicit override: one ``StepMasks`` (``GossDraws`` under
+        GOSS) per party, for its ``d / num_parties`` columns.
       meter: a ``compress.MessageMeter``: records each passive party's
         margin block (``tree_margins``) and the rate vector sent back to
         each passive party (``tree_scales``), and nothing else.
@@ -147,10 +133,10 @@ def train_gradientless(
     party_packed, party_margins, tree_counts = [], [], []
     for p, sl in enumerate(slices):
         x_p = x[:, sl].contiguous()
-        masks_p = (masks[p] if masks is not None else native_party_masks(
-            cfg, n, x_p.shape[1], p, seed))
-        model_p, _ = boosting.train_fedgbf(x_p, y, cfg, masks_p,
-                                           backend=backend, device=dev)
+        model_p, _ = boosting.train_fedgbf(
+            x_p, y, cfg, prng.fold_in(prng.as_key(rng), p),
+            masks=None if masks is None else masks[p], backend=backend,
+            device=dev)
         packed_p = pack_ensemble(model_p)
         binned_p = binning.bin_data(x_p, packed_p.bin_edges)
         margins_p = tree_mod.predict_trees(packed_p.trees(), binned_p,

@@ -9,8 +9,9 @@ same device.  The parties are column blocks and the data shards row blocks
 of one process (``mesh_roles``), so the lattice needs no forced devices
 and no subprocess; where the JAX lattice spreads the rows over the devices
 its 8 forced host devices leave (``data_shards = 8 // parties``), the port
-takes that many row shards.  The masks are the port's own draws (a CPU
-generator per check, seeded as the JAX check seeds its key).
+takes that many row shards.  The masks are drawn from the JAX lattice's
+keys (``PRNGKey(7)``, ``(3)``, ``(9)`` and ``(0)``, ``core/prng.py``), so
+each check sees the JAX check's masks.
 
 Contracts, as in the JAX package:
 
@@ -42,7 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import backend as backend_mod
-from repro_torch.core import binning, boosting, forest, losses, metrics
+from repro_torch.core import binning, boosting, forest, losses, metrics, prng
 from repro_torch.core import objective as objective_mod
 from repro_torch.core.types import FedGBFConfig, TreeConfig, pack_ensemble
 from repro_torch.device import resolve
@@ -63,12 +64,10 @@ CPU = torch.device("cpu")
 
 def _masks(seed: int, n: int, d: int, n_trees: int, rho_id: float,
            rho_feat: float, device):
-    """Exact-count masks from a CPU generator seeded by ``seed``."""
-    smask, fmask = forest.sample_masks(
-        torch.Generator().manual_seed(seed), n, d, n_trees,
-        forest.sample_keep_count(n, rho_id),
-        forest.feature_keep_count(d, rho_feat))
-    return smask.to(device), fmask.to(device)
+    """``forest.sample_masks(PRNGKey(seed), ...)``, as the JAX check
+    draws them."""
+    return forest.sample_masks(prng.PRNGKey(seed, device), n, d, n_trees,
+                               rho_id, rho_feat)
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -182,9 +181,8 @@ def check_goss_lossless(num_parties: int, aggregation: str,
     binned, _ = binning.fit_bin(x, cfg.num_bins)
     g, h = losses.grad_hess("logistic", y, torch.zeros(n, device=device))
     n_top, n_rand = forest.goss_counts(n, 0.4, 0.5)
-    uniform = torch.rand((3, n), generator=torch.Generator().manual_seed(9))
-    smask = forest.goss_weights(g, uniform.to(device), n_top, n_rand)
-    fmask = torch.ones((3, d), dtype=torch.bool, device=device)
+    smask, fmask = forest.goss_masks(prng.PRNGKey(9, device), g, d, 3,
+                                     n_top, n_rand, d)
     trees_c, pred_c = forest.build_forest(binned, g, h, smask, fmask, cfg)
     backend = vfl.make_vfl_backend(num_parties, cfg, aggregation=aggregation)
     trees_f, pred_f = backend.build_forest(binned, g, h, smask, fmask, cfg)
@@ -215,10 +213,8 @@ def _tolerance_data(num_parties: int, device):
 
 
 def _train(x, y, cfg, device, backend="local", **kw):
-    model, _ = boosting.train_fedgbf(
-        x, y, cfg, forest.draw_step_masks(cfg, x.shape[0], x.shape[1],
-                                          torch.Generator().manual_seed(0)),
-        backend=backend, device=device, **kw)
+    model, _ = boosting.train_fedgbf(x, y, cfg, prng.PRNGKey(0),
+                                     backend=backend, device=device, **kw)
     return model
 
 
@@ -319,7 +315,8 @@ def check_gradientless(num_parties: int, loss: str = "logistic",
                        tree=TreeConfig(max_depth=3, num_bins=16))
     meter = compress.MessageMeter()
     packed, info = gradientless.train_gradientless(
-        x_np, y_np, cfg, num_parties, meter=meter, device=device)
+        x_np, y_np, cfg, prng.PRNGKey(0), num_parties, meter=meter,
+        device=device)
     assert info["loss_after"] <= info["loss_before"] + 1e-6, info
     d_party = d // num_parties
     offset = 0

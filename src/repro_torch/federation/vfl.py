@@ -81,7 +81,8 @@ def make_vfl_backend(
       async_exchange: the double-buffered histogram exchange (histogram
         aggregation only); bit-identical, one metered message a level.
       draws: the quantized transport's rounding draws
-        (``compress.Draws``); None = ``compress.native_draws(seed)``.
+        override (``compress.Draws``); None = the JAX keys
+        (``compress.transport_key``).
       chaos: a ``chaos.ChaosSpec``: the level exchange (whatever gather
         the flags above select) runs through the fault-injecting,
         checksum-verified chaos transport; the result is bit-identical to

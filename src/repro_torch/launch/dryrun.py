@@ -134,7 +134,7 @@ def build_step(cfg, spec, mesh) -> Step:
                 for k, v in inputs.items()}
 
     if spec.kind == "train":
-        state = train_mod.init_train_state(cfg, model=model)
+        state = train_mod.init_train_state(None, cfg, model=model)
         step = train_mod.make_train_step(cfg)
         moments = arguments * 2                   # m and v mirror the params
         step_count = (torch.empty((), dtype=torch.int32, device="meta"), ())

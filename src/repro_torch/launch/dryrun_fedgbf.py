@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import backend as backend_mod
-from repro_torch.core import binning, forest, losses
+from repro_torch.core import binning, forest, losses, prng
 from repro_torch.core.types import FedGBFConfig, TreeConfig
 from repro_torch.data import synthetic, tabular
 from repro_torch.device import resolve
@@ -74,8 +74,8 @@ def round_inputs(n: int, n_pad: int, d: int, n_trees: int,
                  device) -> dict:
     """The round's inputs: Give-Me-Some-Credit's ``n`` rows (train and test
     together) padded to ``d`` columns, binned to 32; logistic g and h at a
-    zero margin; native masks from seed 0 (5 trees at rho_id 0.1, every
-    feature); the rows padded to ``n_pad`` with weight 0."""
+    zero margin; masks drawn from ``PRNGKey(0)`` (5 trees at rho_id 0.1,
+    every feature); the rows padded to ``n_pad`` with weight 0."""
     ds = synthetic.load("give_me_some_credit", n=n)
     x = np.concatenate([ds.x_train, ds.x_test])
     y = np.concatenate([ds.y_train, ds.y_test])
@@ -85,9 +85,9 @@ def round_inputs(n: int, n_pad: int, d: int, n_trees: int,
     binned, _ = binning.fit_bin(torch.from_numpy(x), NUM_BINS)
     g, h = losses.logistic_grad_hess(torch.from_numpy(y).float(),
                                      torch.zeros(n))
-    smask, fmask = forest.sample_masks(
-        torch.Generator().manual_seed(0), n, d, n_trees,
-        forest.sample_keep_count(n, RHO_ID), d)
+    smask, fmask = forest.sample_masks_counts(
+        prng.PRNGKey(0), n, d, n_trees, forest.sample_keep_count(n, RHO_ID),
+        d)
     pad = n_pad - n
     rows = torch.nn.functional.pad
     return {"binned": rows(binned, (0, 0, 0, pad)).to(device),

@@ -10,10 +10,12 @@ cache), then greedy or temperature decode, over batched requests.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch gemma2-2b --smoke --batch 4 --prompt-len 32 --gen 32
 
-Weights are drawn natively from a seed-0 ``torch.Generator``; prompts (and
-whisper's stub frames) from ``np.random.default_rng(0)``, as the JAX
-launcher draws them.  Temperature sampling draws from a ``torch.Generator``
-on the device: the JAX launcher's ``jax.random`` draws are not reproduced.
+Weights are the JAX ``init_params(PRNGKey(0), cfg)`` (``core/prng.py``:
+the same bits), drawn on the device; prompts (and whisper's stub frames)
+come from ``np.random.default_rng(0)``, as the JAX launcher draws them.
+Temperature sampling follows the JAX launcher's key stream: ``PRNGKey(0)``
+split once a step, then ``categorical`` on the logits over the
+temperature.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.core import prng
 from repro_torch.device import resolve
 from repro_torch.models.model import LMModel
 
@@ -33,18 +36,18 @@ from repro_torch.models.model import LMModel
 @torch.no_grad()
 def generate(model: LMModel, prompts: torch.Tensor, gen_len: int,
              temperature: float = 0.0, stubs: Optional[dict] = None,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             key: Optional[torch.Tensor] = None) -> torch.Tensor:
     """prompts: (B, P) integer ids -> (B, P + gen_len).  Sampling at
-    ``temperature > 0`` draws from ``generator`` (on the model's device;
-    default seed 0)."""
+    ``temperature > 0`` splits ``key`` (default ``PRNGKey(0)``) once a step
+    and draws ``categorical(sub, logits / temperature)``, the division in
+    the logits' dtype, as the JAX launcher does."""
     cfg = model.cfg
     B, P = prompts.shape
     max_len = P + gen_len
     cache = model.init_cache(B, max_len)
     if cfg.encoder is not None:
         cache = model.fill_cross_cache(cache, model.encode(stubs["frames"]))
-    if temperature > 0 and generator is None:
-        generator = torch.Generator(device=prompts.device).manual_seed(0)
+    key = prng.PRNGKey(0) if key is None else prng.as_key(key, "cpu")
 
     out = [prompts]
     # teacher-forced prefill through the decode path (fills every cache)
@@ -55,9 +58,11 @@ def generate(model: LMModel, prompts: torch.Tensor, gen_len: int,
         out.append(tok)
         logits, cache = model.decode_step(cache, tok, t)
         if temperature > 0:
-            probs = torch.softmax(logits[:, 0, :cfg.vocab].float()
-                                  / temperature, dim=-1)
-            tok = torch.multinomial(probs, 1, generator=generator)
+            # the key chain on the CPU (a split is ~150 tiny ops)
+            key, sub = prng.split(key).unbind(0)
+            scaled = logits[:, 0, :cfg.vocab] / torch.tensor(
+                temperature, dtype=logits.dtype, device=logits.device)
+            tok = prng.categorical(sub, scaled)[:, None]
         else:
             tok = torch.argmax(logits[:, :, :cfg.vocab], dim=-1)
     return torch.cat(out, dim=1)
@@ -81,7 +86,7 @@ def main(argv=None) -> None:
     device = resolve(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     rng = np.random.default_rng(0)
-    model = LMModel(cfg, device, torch.Generator().manual_seed(0))
+    model = LMModel(cfg, device, prng.PRNGKey(0))
     prompts = torch.from_numpy(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))).to(device)
     stubs = {}

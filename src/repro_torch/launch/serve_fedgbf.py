@@ -17,7 +17,8 @@ without a host-side staging copy.  Latency is taken after
         --requests 1000000
 
     # no checkpoint: train Dynamic FedGBF first (local-cuda backend, masks
-    # drawn natively from seed 0), then serve it; --save keeps the model
+    # drawn from PRNGKey(0) as the JAX launcher draws them), then serve it;
+    # --save keeps the model
     PYTHONPATH=src python -m repro_torch.launch.serve_fedgbf --rounds 20 \
         --save /tmp/model
 
@@ -25,10 +26,9 @@ without a host-side staging copy.  Latency is taken after
     PYTHONPATH=src python -m repro_torch.launch.serve_fedgbf \
         --checkpoint /tmp/model --quantize 8 --metrics-port 9109
 
-``--quantize 8|16`` serves a ``QuantizedEnsemble`` whose stochastic
-rounding draws are ``quantize_ensemble``'s default ones (not the JAX
-launcher's ``PRNGKey(0)`` draws, so the tables differ, within the same
-printed bound); a checkpoint that is already quantized (either package's)
+``--quantize 8|16`` serves a ``QuantizedEnsemble`` whose stochastic rounding
+draws come from ``PRNGKey(0)``, as the JAX launcher's do, so the tables equal
+the JAX launcher's; a checkpoint that is already quantized (either package's)
 serves as it is.  ``--metrics-port`` serves the Prometheus exposition on
 localhost for the stream's duration and scrapes it once at the end.
 """
@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import io as ckpt_io
-from repro_torch.core import boosting
+from repro_torch.core import boosting, prng
 from repro_torch.core import objective as objective_mod
 from repro_torch.core.types import (
     PackedEnsemble,
@@ -422,7 +422,7 @@ def main(argv=None) -> None:
         model, _ = boosting.train_fedgbf(
             ds.x_train, ds.y_train,
             boosting.dynamic_fedgbf_config(rounds=args.rounds),
-            backend="local-cuda", device=device)
+            prng.PRNGKey(0), backend="local-cuda", device=device)
         packed = pack_ensemble(model)
         print(f"trained {packed.total_trees} trees / {packed.rounds} rounds "
               f"on {device}")
@@ -431,7 +431,8 @@ def main(argv=None) -> None:
         print(f"saved packed checkpoint to {args.save}")
     if args.quantize:
         if isinstance(packed, PackedEnsemble):
-            packed = quantize_ensemble(packed, bits=args.quantize)
+            packed = quantize_ensemble(packed, bits=args.quantize,
+                                       key=prng.PRNGKey(0))
         print(f"serving int{packed.bits} quantized tables: margin error "
               f"bound {margin_delta_bound(packed):.3e}")
 

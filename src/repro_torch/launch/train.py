@@ -9,8 +9,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --arch smollm-135m --smoke --steps 20 --batch 4 --seq 64
 
-Weights are drawn natively from a seed-0 ``torch.Generator`` (the JAX
-init's distributions, not its draws); batches are ``MarkovZipfSource``'s,
+Weights are the JAX ``init_train_state(PRNGKey(0), cfg)``'s, bit for bit
+(``core/prng.py``), drawn on the device; batches are ``MarkovZipfSource``'s,
 bit-equal to the JAX launcher's.  ``--ckpt PATH`` saves the params in the
 JAX package's ``save_pytree`` layout, so either package loads them.
 """
@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.core import prng
 from repro_torch.data import tokens as tokens_mod
 from repro_torch.device import resolve
 from repro_torch.models import train as train_mod
@@ -77,8 +78,7 @@ def run(args: argparse.Namespace) -> dict:
     print(f"arch={cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
           f"params={cfg.flops_params()/1e6:.1f}M")
 
-    state = train_mod.init_train_state(
-        cfg, device, torch.Generator().manual_seed(0))
+    state = train_mod.init_train_state(prng.PRNGKey(0), cfg, device)
     step_fn = train_mod.make_train_step(
         cfg, peak_lr=args.lr, warmup=min(100, args.steps // 10 + 1),
         total_steps=args.steps)

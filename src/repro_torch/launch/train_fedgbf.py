@@ -19,14 +19,14 @@
     ... --checkpoint ckpt/run --checkpoint-every 2 --stop-after-round 3
     ... --checkpoint ckpt/run --checkpoint-every 2 --resume
 
-Masks: by default every scheduled tree build's masks (under ``--sampling
-goss``: its uniforms and feature masks) are drawn natively from seed 0 on
-the CPU (the JAX package's keep-counts, not its draws), for the whole
-schedule, so a resumed run replays them.  ``--masks PATH.npz`` takes the
-JAX package's draws instead: ``sample_bits`` as ``np.packbits`` rows,
-``feature`` and ``n`` (the format of
-``testdata/dynamic_fedgbf_r20_train.npz``), or under GOSS ``uniform`` and
-``feature``; then the printed history reconciles with the JAX launcher's.
+Masks: every scheduled tree build's masks (under ``--sampling goss``: its
+uniforms and feature masks) are drawn from ``PRNGKey(0)`` as the JAX
+launcher draws them (``core/prng.py``), for the whole schedule, so a
+resumed run replays them and the run trains the JAX launcher's trees.
+``--masks PATH.npz`` overrides the draw with explicit masks:
+``sample_bits`` as ``np.packbits`` rows, ``feature`` and ``n`` (the format
+of ``testdata/dynamic_fedgbf_r20_train.npz``), or under GOSS ``uniform``
+and ``feature``.
 ``--checkpoint PATH`` is the train-state path, as in the JAX launcher; the
 packed model for serving comes from ``serve_fedgbf --save``.  A state
 written on the card resumes on the CPU and the reverse: the fingerprint
@@ -73,6 +73,7 @@ from repro_torch.core import backend as backend_mod
 from repro_torch.core import boosting, metrics
 from repro_torch.core import forest as forest_mod
 from repro_torch.core import objective as objective_mod
+from repro_torch.core import prng
 from repro_torch.core.types import (
     EnsembleModel,
     TreeConfig,
@@ -373,12 +374,12 @@ def main(argv=None) -> None:
         masks = _load_masks(args.masks, cfg.sampling, device)
     else:  # the whole schedule's draws, so a resumed run replays them
         masks = forest_mod.draw_step_masks(cfg, n, d,
-                                           torch.Generator().manual_seed(0))
+                                           prng.PRNGKey(0, device))
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
     print(f"backend={backend_name} on {where}: {n} x {d} rows, "
           f"sampling={cfg.sampling}, masks "
-          f"{'from ' + args.masks if args.masks else 'drawn from seed 0'}")
+          f"{'from ' + args.masks if args.masks else 'drawn from PRNGKey(0)'}")
 
     fingerprint = _fingerprint(args, cfg,
                                args.parties if federated else None)
@@ -409,7 +410,7 @@ def main(argv=None) -> None:
     while a < stop_limit:
         b = min(a + chunk, stop_limit)
         model_c, hist_c = boosting.train_fedgbf(
-            x_train, ds.y_train, cfg, masks, backend=backend,
+            x_train, ds.y_train, cfg, masks=masks, backend=backend,
             eval_every=args.eval_every, verbose=not args.log_json,
             tracer=tracer, device=device, round_feature_mask=round_mask,
             start_round=a, stop_round=b, init_margin=margin_carry)
@@ -474,8 +475,8 @@ def main(argv=None) -> None:
         for p in runtime_mod.degraded_parties(dropout_sched):
             sl = runtime_mod.party_column_slice(p, d, args.parties)
             gl_model, _ = gradientless.train_gradientless(
-                x_train[:, sl], ds.y_train, cfg, num_parties=1,
-                device=device, seed=1000 + p)
+                x_train[:, sl], ds.y_train, cfg, prng.PRNGKey(1000 + p),
+                num_parties=1, device=device)
             margin = margin + (boosting.predict(gl_model, x_test[:, sl])
                                - gl_model.base_score)
             print(f"gradientless fallback: party {p} "

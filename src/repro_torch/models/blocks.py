@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch.core import prng
 from repro_torch.models import layers, moe as moe_mod, ssm as ssm_mod
 
 ATTN_TYPES = {"attn", "attn_local", "attn_swa", "attn_moe", "enc_attn", "dec_attn"}
@@ -68,6 +69,56 @@ class SharedAttn(nn.Module):
                                      device)
         self.ln_ffn = layers.Norm(cfg, d, device)
         self.ffn = layers.FFN(cfg, d, cfg.d_ff, device)
+
+
+# ---------------------------------------------------------------------------
+# Init (the JAX parameter dicts; a batch of keys stacks the leaves)
+# ---------------------------------------------------------------------------
+def init_block(key: torch.Tensor, block_type: str, cfg) -> dict:
+    d, hd = cfg.d_model, cfg.hd
+    keys = [k for k in prng.split(key, 8).unbind(-2)]
+    p: dict = {}
+    if block_type in ATTN_TYPES:
+        p["ln_attn"] = layers.init_norm(cfg, d, key)
+        p["attn"] = layers.init_attention(keys[0], cfg, d, cfg.n_heads,
+                                          cfg.n_kv_heads, hd)
+        if cfg.post_norm:
+            p["ln_attn_post"] = layers.init_norm(cfg, d, key)
+        if block_type == "dec_attn":
+            p["ln_cross"] = layers.init_norm(cfg, d, key)
+            p["cross"] = layers.init_attention(keys[1], cfg, d, cfg.n_heads,
+                                               cfg.n_heads, hd, cross=True)
+        p["ln_ffn"] = layers.init_norm(cfg, d, key)
+        if block_type in MOE_TYPES:
+            p["moe"] = moe_mod.init_moe(keys[2], cfg, d, cfg.d_ff)
+        else:
+            p["ffn"] = layers.init_ffn(keys[2], cfg, d, cfg.d_ff)
+        if cfg.post_norm:
+            p["ln_ffn_post"] = layers.init_norm(cfg, d, key)
+    elif block_type == "mamba":
+        p["ln"] = layers.init_norm(cfg, d, key)
+        p["mamba"] = ssm_mod.init_mamba(keys[0], cfg, d)
+    elif block_type == "rwkv":
+        p["ln_time"] = layers.init_norm(cfg, d, key)
+        p["time"] = ssm_mod.init_rwkv(keys[0], cfg, d)
+        p["ln_chan"] = layers.init_norm(cfg, d, key)
+        p["chan"] = ssm_mod.init_rwkv_channel(keys[1], cfg, d, cfg.d_ff)
+    else:
+        raise ValueError(f"unknown block type {block_type!r}")
+    return p
+
+
+def init_shared_attn(key: torch.Tensor, cfg) -> dict:
+    """Zamba2's weight-shared attention+FFN block (applied periodically)."""
+    d, hd = cfg.d_model, cfg.hd
+    keys = prng.split(key)
+    return {
+        "ln_attn": layers.init_norm(cfg, d, key),
+        "attn": layers.init_attention(keys[..., 0, :], cfg, d, cfg.n_heads,
+                                      cfg.n_kv_heads, hd),
+        "ln_ffn": layers.init_norm(cfg, d, key),
+        "ffn": layers.init_ffn(keys[..., 1, :], cfg, d, cfg.d_ff),
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,10 @@ The port of ``repro/models/layers.py``.  Parameters live in ``nn.Module``s
 whose attribute names are the JAX package's dict keys (``wq``, ``w_gate``,
 ``scale``, ...), each in the JAX ``(in, out)`` layout so that ``x @ w``
 matches; the functions keep the JAX names and take the module as ``p``.
-Modules are created empty (``torch.empty``) and filled by
-``LMModel.init_weights`` or ``convert.lm_params_from_numpy``.
+Modules are created empty (``torch.empty``) and filled from a JAX
+parameter tree (``convert.lm_params_from_numpy``): the one ``init_params``
+draws (``models/model.py``, from the ``init_*`` functions here and in
+``blocks``, ``moe`` and ``ssm``), or one loaded or converted.
 
 The ``partition.shard_*`` anchors sit at the JAX package's sites; they
 only record, inside the dry-run's ``partition.recording`` context.
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import prng
 from repro_torch.models import partition
 
 
@@ -31,6 +34,52 @@ def dtype_of(name: str) -> torch.dtype:
 
 def empty_param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+
+# ---------------------------------------------------------------------------
+# Init: the JAX ``init_*`` functions, key for key.  A key may carry a leading
+# batch (``jax.vmap`` over the units' keys); every leaf then gets that batch
+# as its leading axes, constants too.
+# ---------------------------------------------------------------------------
+def scaled_normal(key: torch.Tensor, shape: tuple, scale: float,
+                  dtype: torch.dtype = torch.float32,
+                  divide: bool = False) -> torch.Tensor:
+    """``(jax.random.normal(key, shape) * scale).astype(dtype)`` (``/ scale``
+    with ``divide``): the float32 product (quotient) by the float32 scale,
+    then the cast."""
+    x = prng.normal(key, shape)
+    s = torch.tensor(scale, dtype=torch.float32, device=x.device)
+    return (x / s if divide else x * s).to(dtype)
+
+
+def full(key: torch.Tensor, shape: tuple, value,
+         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A constant leaf of ``shape`` behind ``key``'s batch axes."""
+    value = torch.as_tensor(value, dtype=dtype, device=key.device)
+    return value.expand(tuple(key.shape[:-1]) + tuple(shape)).clone()
+
+
+def init_norm(cfg, d: int, key: torch.Tensor) -> dict:
+    """RMS: ``scale`` zeros (applied as ``1 + scale``); layer: ``scale``
+    ones, ``bias`` zeros.  ``key`` draws nothing: it places the leaves
+    (its device and batch)."""
+    if cfg.norm_type == "layer":
+        return {"scale": full(key, (d,), 1.0), "bias": full(key, (d,), 0.0)}
+    return {"scale": full(key, (d,), 0.0)}
+
+
+def init_attention(key: torch.Tensor, cfg, d_model: int, n_heads: int,
+                   n_kv: int, hd: int, cross: bool = False) -> dict:
+    keys = prng.split(key, 4)
+    s = 1.0 / math.sqrt(d_model)
+    dt = dtype_of(cfg.param_dtype)
+    return {
+        "wq": scaled_normal(keys[..., 0, :], (d_model, n_heads * hd), s, dt),
+        "wk": scaled_normal(keys[..., 1, :], (d_model, n_kv * hd), s, dt),
+        "wv": scaled_normal(keys[..., 2, :], (d_model, n_kv * hd), s, dt),
+        "wo": scaled_normal(keys[..., 3, :], (n_heads * hd, d_model),
+                            1.0 / math.sqrt(n_heads * hd), dt),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -266,6 +315,24 @@ class FFN(nn.Module):
             self.w_out = empty_param((d_ff, d_model), dt, device)
 
 
+def init_ffn(key: torch.Tensor, cfg, d_model: int, d_ff: int) -> dict:
+    keys = prng.split(key, 3)
+    s_in = 1.0 / math.sqrt(d_model)
+    s_out = 1.0 / math.sqrt(d_ff)
+    dt = dtype_of(cfg.param_dtype)
+    k1, k2, k3 = (keys[..., i, :] for i in range(3))
+    if cfg.ffn_type in ("swiglu", "geglu"):
+        return {
+            "w_gate": scaled_normal(k1, (d_model, d_ff), s_in, dt),
+            "w_up": scaled_normal(k2, (d_model, d_ff), s_in, dt),
+            "w_down": scaled_normal(k3, (d_ff, d_model), s_out, dt),
+        }
+    return {
+        "w_in": scaled_normal(k1, (d_model, d_ff), s_in, dt),
+        "w_out": scaled_normal(k2, (d_ff, d_model), s_out, dt),
+    }
+
+
 def ffn(p: FFN, x: torch.Tensor, cfg) -> torch.Tensor:
     dt = x.dtype
     if cfg.ffn_type == "swiglu":
@@ -295,6 +362,18 @@ class Embed(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = empty_param((cfg.d_model, cfg.vocab_padded), dt,
                                        device)
+
+
+def init_embed(key: torch.Tensor, cfg) -> dict:
+    dt = dtype_of(cfg.param_dtype)
+    keys = prng.split(key)
+    p = {"tokens": scaled_normal(keys[..., 0, :],
+                                 (cfg.vocab_padded, cfg.d_model), 0.02, dt)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = scaled_normal(keys[..., 1, :],
+                                     (cfg.d_model, cfg.vocab_padded),
+                                     math.sqrt(cfg.d_model), dt, divide=True)
+    return p
 
 
 def embed_tokens(p: Embed, tokens: torch.Tensor, cfg,

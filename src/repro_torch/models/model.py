@@ -12,7 +12,9 @@ attention block (the JAX ``lax.cond``) fires after unit ``u`` when
 ``jax_leaves`` names every parameter by its path in the JAX parameter tree
 (``("units", i, "attn", "wq")``, stacked over the units), in the JAX
 package's leaf order: ``convert.lm_params_{from,to}_numpy`` and the
-checkpoint files go through it.
+checkpoint files go through it.  ``init_params(key, cfg)`` draws that tree
+as the JAX ``init_params`` does, key for key (``core/prng.py``: the same
+bits), on the key's device; ``LMModel(cfg, device, key)`` loads it.
 """
 
 from __future__ import annotations
@@ -25,8 +27,33 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import prng
 from repro_torch.models import blocks, layers
 from repro_torch.models.config import ModelConfig
+
+
+def init_params(key: torch.Tensor, cfg: ModelConfig) -> dict:
+    """The JAX ``init_params``: the parameter tree (nested dicts, a list
+    over the pattern positions, each leaf stacked over the units) drawn
+    from ``key`` on its device."""
+    keys = prng.split(key, 8)
+    params: dict = {"embed": layers.init_embed(keys[0], cfg)}
+    unit_keys = prng.split(keys[1], len(cfg.pattern))
+    # jax.vmap over the units' keys: one batched draw a leaf
+    params["units"] = [
+        blocks.init_block(prng.split(unit_keys[i], cfg.num_units), bt, cfg)
+        for i, bt in enumerate(cfg.pattern)]
+    params["final_norm"] = layers.init_norm(cfg, cfg.d_model, key)
+    if cfg.shared_attn_every > 0:
+        params["shared"] = blocks.init_shared_attn(keys[2], cfg)
+    if cfg.encoder is not None:
+        params["encoder"] = {
+            "layers": blocks.init_block(
+                prng.split(keys[3], cfg.encoder.num_layers), "enc_attn",
+                cfg),
+            "final_norm": layers.init_norm(cfg, cfg.d_model, key),
+        }
+    return params
 
 
 class Encoder(nn.Module):
@@ -76,13 +103,13 @@ def _jax_path(name: str) -> tuple[tuple, Optional[int]]:
 
 
 class LMModel(nn.Module):
-    """The language model of ``cfg``.  Its parameters are drawn as the JAX
-    ``init_params`` draws them (the same distributions, from ``generator``,
-    a CPU ``torch.Generator``; default seed 0), except on the ``meta``
-    device, which allocates nothing (shapes only)."""
+    """The language model of ``cfg``.  Its parameters are the JAX
+    ``init_params(key, cfg)`` tree (``key`` default ``PRNGKey(0)``), drawn
+    on ``device``, except on the ``meta`` device, which allocates nothing
+    (shapes only)."""
 
     def __init__(self, cfg: ModelConfig, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 key: Optional[torch.Tensor] = None):
         super().__init__()
         self.cfg = cfg
         self.embed = layers.Embed(cfg, device)
@@ -94,20 +121,11 @@ class LMModel(nn.Module):
             self.shared = blocks.SharedAttn(cfg, device)
         if cfg.encoder is not None:
             self.encoder = Encoder(cfg, device)
-        if torch.device(device or "cpu").type != "meta":
-            self.init_weights(generator)
-
-    @torch.no_grad()
-    def init_weights(self, generator: Optional[torch.Generator] = None):
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        for name, p in self.named_parameters():
-            base, std = init_rule(name.rsplit(".", 1)[-1], tuple(p.shape),
-                                  self.cfg)
-            value = torch.as_tensor(base, dtype=torch.float32).expand(p.shape)
-            if std:
-                value = value + std * torch.randn(p.shape, generator=generator)
-            p.copy_(value)
+        device = torch.device(device or "cpu")
+        if device.type != "meta":
+            from repro_torch import convert   # convert imports this module
+            key = prng.PRNGKey(0) if key is None else prng.as_key(key)
+            convert.load_lm_tree(self, init_params(key.to(device), cfg))
 
     # -------------------------------------------------------------- JAX tree
     def jax_leaves(self) -> list[tuple[tuple, list[nn.Parameter]]]:

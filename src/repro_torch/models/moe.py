@@ -10,12 +10,15 @@ among equal probabilities, which a stable descending sort gives.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import prng
 from repro_torch.models import partition
-from repro_torch.models.layers import dtype_of, empty_param
+from repro_torch.models.layers import dtype_of, empty_param, scaled_normal
 
 
 class MoE(nn.Module):
@@ -30,6 +33,21 @@ class MoE(nn.Module):
         self.w_gate = empty_param((E, d_model, d_ff), dt, device)
         self.w_up = empty_param((E, d_model, d_ff), dt, device)
         self.w_down = empty_param((E, d_ff, d_model), dt, device)
+
+
+def init_moe(key: torch.Tensor, cfg, d_model: int, d_ff: int) -> dict:
+    E = cfg.moe.num_experts
+    keys = prng.split(key, 4)
+    s_in = 1.0 / math.sqrt(d_model)
+    s_out = 1.0 / math.sqrt(d_ff)
+    dt = dtype_of(cfg.param_dtype)
+    return {
+        "router": scaled_normal(keys[..., 0, :], (d_model, E), s_in),
+        "w_gate": scaled_normal(keys[..., 1, :], (E, d_model, d_ff), s_in, dt),
+        "w_up": scaled_normal(keys[..., 2, :], (E, d_model, d_ff), s_in, dt),
+        "w_down": scaled_normal(keys[..., 3, :], (E, d_ff, d_model), s_out,
+                                dt),
+    }
 
 
 def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -17,12 +17,16 @@ References: SSD / Mamba-2 (Dao & Gu 2024, arXiv:2405.21060); RWKV-6 "Finch"
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import prng
 from repro_torch.models import layers, partition
-from repro_torch.models.layers import dtype_of, empty_param
+from repro_torch.models.layers import (dtype_of, empty_param, full,
+                                       scaled_normal)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -51,6 +55,36 @@ class Mamba(nn.Module):
         self.dt_bias = empty_param((H,), f32, device)
         self.norm = empty_param((d_in,), f32, device)    # gated RMSNorm scale
         self.out_proj = empty_param((d_in, d_model), dt, device)
+
+
+def init_mamba(key: torch.Tensor, cfg, d_model: int) -> dict:
+    s = cfg.ssm
+    d_in = s.d_inner(d_model)
+    H = s.n_heads(d_model)
+    N = s.d_state
+    keys = prng.split(key, 6)
+    dt = dtype_of(cfg.param_dtype)
+    # jnp.log(jnp.linspace(1, 16, H)): jnp.linspace's float32 formula
+    # start * (1 - step) + stop * step, step = iota / (H - 1) (both products
+    # exact here), and XLA's log
+    step = (torch.arange(H - 1, dtype=torch.float32)
+            / torch.tensor(float(max(H - 1, 1)), dtype=torch.float32))
+    grid = torch.cat([(1.0 - step) + 16.0 * step, torch.tensor([16.0])])
+    if H == 1:
+        grid = torch.ones(1)
+    return {
+        "in_proj": scaled_normal(keys[..., 0, :],
+                                 (d_model, 2 * d_in + 2 * N + H),
+                                 1.0 / math.sqrt(d_model), dt),
+        "conv": scaled_normal(keys[..., 1, :], (s.conv_kernel, d_in),
+                              1.0 / math.sqrt(s.conv_kernel), dt),
+        "A_log": full(key, (H,), prng.log(grid)),
+        "D": full(key, (H,), 1.0),
+        "dt_bias": full(key, (H,), 0.0),
+        "norm": full(key, (d_in,), 0.0),     # gated RMSNorm scale
+        "out_proj": scaled_normal(keys[..., 2, :], (d_in, d_model),
+                                  1.0 / math.sqrt(d_in), dt),
+    }
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -218,6 +252,28 @@ class RWKVTime(nn.Module):
         self.ln_bias = empty_param((d_model,), f32, device)
 
 
+def init_rwkv(key: torch.Tensor, cfg, d_model: int) -> dict:
+    lora = cfg.rwkv.decay_lora
+    keys = [k for k in prng.split(key, 10).unbind(-2)]
+    dt = dtype_of(cfg.param_dtype)
+    s = 1.0 / math.sqrt(d_model)
+    sq = (d_model, d_model)
+    return {
+        "mu": full(key, (5, d_model), 0.5),
+        "wr": scaled_normal(keys[0], sq, s, dt),
+        "wk": scaled_normal(keys[1], sq, s, dt),
+        "wv": scaled_normal(keys[2], sq, s, dt),
+        "wg": scaled_normal(keys[3], sq, s, dt),
+        "wo": scaled_normal(keys[4], sq, s, dt),
+        "w0": full(key, (d_model,), -1.0),
+        "wA": scaled_normal(keys[5], (d_model, lora), s),
+        "wB": scaled_normal(keys[6], (lora, d_model), 1.0 / math.sqrt(lora)),
+        "u": scaled_normal(keys[7], (d_model,), 0.1),
+        "ln_scale": full(key, (d_model,), 1.0),
+        "ln_bias": full(key, (d_model,), 0.0),
+    }
+
+
 def _shift(x: torch.Tensor, x_prev=None) -> torch.Tensor:
     if x_prev is None:
         return F.pad(x, (0, 0, 1, 0))[:, :-1, :]
@@ -377,6 +433,20 @@ class RWKVChannel(nn.Module):
         self.w_in = empty_param((d_model, d_ff), dt, device)
         self.w_out = empty_param((d_ff, d_model), dt, device)
         self.w_recept = empty_param((d_model, d_model), dt, device)
+
+
+def init_rwkv_channel(key: torch.Tensor, cfg, d_model: int,
+                      d_ff: int) -> dict:
+    keys = prng.split(key, 3)
+    dt = dtype_of(cfg.param_dtype)
+    s = 1.0 / math.sqrt(d_model)
+    return {
+        "mu": full(key, (2, d_model), 0.5),
+        "w_in": scaled_normal(keys[..., 0, :], (d_model, d_ff), s, dt),
+        "w_out": scaled_normal(keys[..., 1, :], (d_ff, d_model),
+                               1.0 / math.sqrt(d_ff), dt),
+        "w_recept": scaled_normal(keys[..., 2, :], (d_model, d_model), s, dt),
+    }
 
 
 def rwkv_channel_mix(p: RWKVChannel, x: torch.Tensor, x_prev=None):

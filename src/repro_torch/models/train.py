@@ -26,13 +26,14 @@ class TrainState:
     opt: AdamW
 
 
-def init_train_state(cfg: ModelConfig, device=None,
-                     generator: Optional[torch.Generator] = None,
+def init_train_state(key: Optional[torch.Tensor], cfg: ModelConfig,
+                     device=None,
                      model: Optional[LMModel] = None) -> TrainState:
     """A fresh optimizer over ``model``, or over a new model of ``cfg``
-    drawn from ``generator`` on ``device``."""
+    whose parameters are the JAX ``init_params(key, cfg)``, drawn on
+    ``device``."""
     if model is None:
-        model = LMModel(cfg, device, generator)
+        model = LMModel(cfg, device, key)
     return TrainState(model=model, opt=AdamW(model.parameters()))
 
 

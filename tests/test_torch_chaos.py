@@ -11,7 +11,7 @@ CPU.
 * the measured ``retries`` bytes equal the port's ``wire_retry_bytes``
   and the JAX package's (pure arithmetic), and a run's own meter equals
   the plan replayed at the run's tree counts;
-* ``secure.pairwise_masks`` equal JAX's given the JAX draws.
+* ``secure.pairwise_masks`` equal JAX's from the same seed.
 """
 
 import jax
@@ -178,16 +178,11 @@ def test_retries_equal_wire_model_and_jax(agg, transport):
 
 
 def test_secure_masks_equal_jax():
-    """``pairwise_masks`` from the JAX draws equal JAX's masks bit for
-    bit; masking and aggregation equal JAX's and the masks cancel."""
+    """``pairwise_masks`` from the seed alone equal JAX's masks bit for
+    bit (the PRF is the JAX package's ``normal`` draw); masking and
+    aggregation equal JAX's and the masks cancel."""
     seed, parties, shape = 3, 4, (5, 6)
-
-    def jax_prf(p, q, shp):
-        key = jax.random.fold_in(jax.random.PRNGKey(seed), p * parties + q)
-        return torch.from_numpy(np.array(
-            jax.random.normal(key, shp, jnp.float32)))
-
-    got = t_secure.pairwise_masks(seed, parties, shape, prf=jax_prf)
+    got = t_secure.pairwise_masks(seed, parties, shape)
     want = np.asarray(j_secure.pairwise_masks(seed, parties, shape))
     np.testing.assert_array_equal(got.numpy(), want)
     values = np.random.default_rng(1).normal(
@@ -200,7 +195,6 @@ def test_secure_masks_equal_jax():
         np.asarray(j_secure.aggregate(j_masked)))
     np.testing.assert_allclose(t_secure.aggregate(masked).numpy(),
                                values.sum(0), atol=1e-5)
-    native = t_secure.pairwise_masks(seed, parties, shape)
-    assert native.shape == (parties,) + shape
-    np.testing.assert_allclose(t_secure.aggregate(native).numpy(), 0.0,
+    assert got.shape == (parties,) + shape
+    np.testing.assert_allclose(t_secure.aggregate(got).numpy(), 0.0,
                                atol=1e-6)

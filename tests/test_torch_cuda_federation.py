@@ -25,7 +25,7 @@ def test_vfl_four_parties_on_card_equal_local_cuda(device, name):
     P x levels x rounds round-histogram launches, and trees, leaves and
     final margins ``torch.equal`` to ``local-cuda`` on the same columns."""
     from repro_torch.core import backend as backend_mod
-    from repro_torch.core import boosting, forest
+    from repro_torch.core import boosting, forest, prng
     from repro_torch.data import synthetic, tabular
     from repro_torch.kernels.histogram import ops
 
@@ -34,13 +34,13 @@ def test_vfl_four_parties_on_card_equal_local_cuda(device, name):
     x, d = tabular.pad_features(np.asarray(ds.x_train), parties)
     cfg = boosting.dynamic_fedgbf_config(rounds=3)
     masks = forest.draw_step_masks(cfg, x.shape[0], d,
-                                   torch.Generator().manual_seed(0))
-    local, local_h = boosting.train_fedgbf(x, ds.y_train, cfg, masks,
+                                   prng.PRNGKey(0, device))
+    local, local_h = boosting.train_fedgbf(x, ds.y_train, cfg, masks=masks,
                                            backend="local-cuda",
                                            device=device)
     ops.reset_launches()
     model, hist = boosting.train_fedgbf(
-        x, ds.y_train, cfg, masks, device=device,
+        x, ds.y_train, cfg, masks=masks, device=device,
         backend=backend_mod.get_backend(name, tree=cfg.tree,
                                         num_parties=parties))
     torch.cuda.synchronize()
@@ -60,7 +60,7 @@ def test_vfl_runtime_on_card_equal_oracles(device):
     party a level and its ledger is exact; the 2-shard run launches once a
     party and shard a level and equals the same run on CPU tensors."""
     from repro_torch.core import backend as backend_mod
-    from repro_torch.core import boosting, forest
+    from repro_torch.core import boosting, forest, prng
     from repro_torch.data import synthetic, tabular
     from repro_torch.federation import chaos, compress, gradientless, runtime
     from repro_torch.kernels.histogram import ops
@@ -71,13 +71,13 @@ def test_vfl_runtime_on_card_equal_oracles(device):
     cfg = boosting.dynamic_fedgbf_config(rounds=3)
     levels = cfg.tree.max_depth * cfg.rounds
     masks = forest.draw_step_masks(cfg, x.shape[0], d,
-                                   torch.Generator().manual_seed(0))
+                                   prng.PRNGKey(0, device))
 
     def train(name, dev=device, **kw):
         bk = kw.pop("backend", None) or backend_mod.get_backend(
             name, tree=cfg.tree, num_parties=parties, **kw.pop("bk", {}))
         ops.reset_launches()
-        model, hist = boosting.train_fedgbf(x, ds.y_train, cfg, masks,
+        model, hist = boosting.train_fedgbf(x, ds.y_train, cfg, masks=masks,
                                             backend=bk, device=dev, **kw)
         if dev == device:
             torch.cuda.synchronize()
@@ -105,8 +105,9 @@ def test_vfl_runtime_on_card_equal_oracles(device):
 
     meter = compress.MessageMeter()
     ops.reset_launches()
-    _, info = gradientless.train_gradientless(x, ds.y_train, cfg, parties,
-                                              meter=meter, device=device)
+    _, info = gradientless.train_gradientless(
+        x, ds.y_train, cfg, prng.PRNGKey(1000), parties, meter=meter,
+        device=device)
     assert ops.kernel_launches("histogram_round") == parties * levels
     want = gradientless.wire_cost(x.shape[0], info["tree_counts"])
     assert meter.phase_totals() == {k: v for k, v in want.items()

@@ -45,6 +45,7 @@ from repro.federation import aggregator as j_aggregator
 from repro_torch.convert import masks_from_numpy
 from repro_torch.core import backend as t_backend
 from repro_torch.core import boosting as t_boosting
+from repro_torch.core import prng
 from repro_torch.core.types import TreeConfig as TTreeConfig
 from repro_torch.data import synthetic as t_synthetic
 from repro_torch.federation import aggregator as t_aggregator
@@ -77,7 +78,7 @@ def small_config(**kw):
 
 def train_port(x, y, cfg, smask, fmask, backend):
     return t_boosting.train_fedgbf(
-        x, y, cfg, masks_from_numpy(smask, fmask, device="cpu"),
+        x, y, cfg, masks=masks_from_numpy(smask, fmask, device="cpu"),
         backend=backend, device="cpu")
 
 
@@ -280,15 +281,20 @@ def test_quantized_four_parties_equal_committed_jax(bits, quantized_p4):
 
 
 def test_native_draws_train_on_any_device_the_same():
-    """Native draws come from a CPU generator keyed by (seed, level,
-    num_nodes, party): the same payload keys give the same noise, other
-    keys other noise, and a quantized run repeats itself."""
-    draws = t_compress.native_draws(0)
-    a = draws(1, 2, 3, (2, 4))
-    assert a.device.type == "cpu" and a.dtype == torch.float32
-    assert torch.equal(a, draws(1, 2, 3, (2, 4)))
-    assert not torch.equal(a, draws(1, 2, 2, (2, 4)))
-    assert not torch.equal(a, t_compress.native_draws(1)(1, 2, 3, (2, 4)))
+    """The transport's rounding draws come from the JAX key chain
+    ``fold_in(fold_in(fold_in(PRNGKey(seed), level), num_nodes), party)``:
+    ``transport_key`` is JAX's key, its uniforms are the JAX draws (so the
+    keys are the same on any device), other keys give other noise, and a
+    quantized run repeats itself."""
+    want = jax.random.fold_in(jax.random.fold_in(jax.random.fold_in(
+        jax.random.PRNGKey(0), 1), 2), 3)
+    key = t_compress.transport_key(0, 1, 2, 3)
+    assert key == tuple(int(v) for v in np.asarray(want))
+    a = prng.uniform(torch.tensor(key), (2, 4))
+    assert a.dtype == torch.float32
+    np.testing.assert_array_equal(a.numpy(), jax_draws()(1, 2, 3, (2, 4)))
+    assert key != t_compress.transport_key(0, 1, 2, 2)
+    assert key != t_compress.transport_key(1, 1, 2, 3)
     x, y = small_data()
     cfg = small_config()
     smask, fmask = jax_step_masks(jax_config(cfg), *x.shape)

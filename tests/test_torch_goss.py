@@ -1,9 +1,9 @@
 """Port vs JAX package: GOSS (gradient-based one-side sampling) on the CPU.
 
 The JAX package draws GOSS's uniforms and feature masks inside each round
-from per-build keys (threefry, which torch cannot reproduce); the port
-takes the same draws as an input (``forest.GossDraws``).  With them, the
-weight masks must equal ``goss_masks_from_keys``' bit for bit (K = 1 and 3,
+from per-build keys; the port draws the same ones from the same keys up
+front (``forest.GossDraws``, ``core/prng.py``), or takes them as an
+input.  With them, the weight masks must equal ``goss_masks_from_keys``' bit for bit (K = 1 and 3,
 tied uniforms and tied gradients included) and training must build the JAX
 scan engine's trees and leaves exactly; margins are held at 1e-6 as in
 ``tests/test_torch_train.py``.
@@ -20,10 +20,10 @@ import torch
 
 from repro.core import boosting as j_boosting
 from repro.core import forest as j_forest
-from repro_torch.convert import goss_draws_from_numpy
 from repro_torch.core import boosting as t_boosting
 from repro_torch.core import dynamic as t_dynamic
 from repro_torch.core import forest as t_forest
+from repro_torch.core import prng
 from repro_torch.core.types import TreeConfig as TTreeConfig
 from repro_torch.data import synthetic as t_synthetic
 from torch_parity import assert_trees_equal, jax_config, jax_goss_draws
@@ -73,16 +73,14 @@ def test_goss_weights_equal_jax(k, ties):
 
 
 def _train_both(t_cfg, ds, backend):
+    """Both packages from ``PRNGKey(0)`` alone."""
     j_cfg = jax_config(t_cfg)
-    n, d = ds.x_train.shape
-    uniform, feature = jax_goss_draws(j_cfg, n, d)
     jm, jh = j_boosting.train_fedgbf(
         jnp.asarray(ds.x_train), jnp.asarray(ds.y_train), j_cfg,
         jax.random.PRNGKey(0))
     tm, th = t_boosting.train_fedgbf(
-        ds.x_train, ds.y_train, t_cfg,
-        goss_draws_from_numpy(uniform, feature, device="cpu"),
-        backend=backend, device="cpu")
+        ds.x_train, ds.y_train, t_cfg, prng.PRNGKey(0), backend=backend,
+        device="cpu")
     return (jm, jh), (tm, th)
 
 
@@ -110,25 +108,26 @@ def test_goss_training_equals_jax_scan(loss, dataset):
 
 
 def test_goss_native_draws_and_invariants():
-    """The native sampler: ``torch.rand`` uniforms and exact-count feature
-    masks per build, drawn on the CPU and deterministic per seed; the
-    weights of every round keep the n_top largest |g| at 1, the rest at 0
+    """The key-based sampler: per build the JAX uniforms and exact-count
+    feature masks (``jax_goss_draws``), deterministic per key; the weights
+    of every round keep the n_top largest |g| at 1, the rest at 0
     or the amplification, with at least n_top + n_rand rows kept."""
     cfg = t_boosting.FedGBFConfig(rounds=5, n_trees_max=3, n_trees_min=2,
                                   rho_id_min=0.1, rho_id_max=0.3,
                                   rho_feat=0.6, sampling="goss")
     n, d = 600, 10
-    draws = t_forest.draw_step_masks(cfg, n, d,
-                                     torch.Generator().manual_seed(3))
+    draws = t_forest.draw_step_masks(cfg, n, d, prng.PRNGKey(3))
     assert isinstance(draws, t_forest.GossDraws)
     sched, _ = t_dynamic.flat_schedule(cfg)
     assert draws.uniform.shape == (int(sched.n_trees.sum()), n)
     assert draws.uniform.device.type == "cpu"
     assert ((draws.uniform >= 0) & (draws.uniform < 1)).all()
     assert (draws.feature.sum(1) == 6).all()
-    again = t_forest.draw_step_masks(cfg, n, d,
-                                     torch.Generator().manual_seed(3))
+    again = t_forest.draw_step_masks(cfg, n, d, prng.PRNGKey(3))
     assert torch.equal(again.uniform, draws.uniform)
+    uniform, feature = jax_goss_draws(jax_config(cfg), n, d, seed=3)
+    np.testing.assert_array_equal(draws.uniform.numpy(), uniform)
+    np.testing.assert_array_equal(draws.feature.numpy(), feature)
     g = torch.from_numpy(np.random.default_rng(0).normal(size=n)
                          .astype(np.float32))
     for m in range(1, cfg.rounds + 1):

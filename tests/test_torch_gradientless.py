@@ -2,8 +2,8 @@
 (``selftest.check_gradientless``'s cases: K = 1 with 4 parties, K = 3 with
 2).
 
-Each party's fit takes the JAX draws of ``fold_in(PRNGKey(0), p)`` as its
-masks.  Held: every per-party tree array exact (features, thresholds,
+Each party's fit draws its masks from ``fold_in(PRNGKey(0), p)``, as the
+JAX package does.  Held: every per-party tree array exact (features, thresholds,
 gains, leaves, bin edges), the learned rates within rtol 1e-5 of JAX's
 (Adam over 300 float32 steps on ``jax.grad`` vs ``torch.autograd``: the
 reductions differ in the last ulp; ROADMAP §3 logs the measured gap), and
@@ -18,12 +18,12 @@ import pytest
 
 from repro.federation import compress as j_compress
 from repro.federation import gradientless as j_gradientless
-from repro_torch.convert import masks_from_numpy
+from repro_torch.core import prng
 from repro_torch.core.types import FedGBFConfig, TreeConfig
 from repro_torch.federation import compress as t_compress
 from repro_torch.federation import gradientless as t_gradientless
 from repro_torch.federation import selftest as t_selftest
-from torch_parity import jax_config, jax_step_masks
+from torch_parity import jax_config
 
 SCALE_RTOL = 1e-5
 
@@ -54,12 +54,9 @@ def test_gradientless_equals_jax(parties, loss):
     j_meter = j_compress.MessageMeter()
     j_packed, j_info = j_gradientless.train_gradientless(
         jnp.asarray(x), jnp.asarray(y), j_cfg, key, parties, meter=j_meter)
-    masks = [masks_from_numpy(*jax_step_masks(
-        j_cfg, n, d // parties, key=jax.random.fold_in(key, p)),
-        device="cpu") for p in range(parties)]
     meter = t_compress.MessageMeter()
     packed, info = t_gradientless.train_gradientless(
-        x, y, cfg, parties, masks=masks, meter=meter, device="cpu")
+        x, y, cfg, prng.PRNGKey(0), parties, meter=meter, device="cpu")
 
     for f in ("feature", "threshold", "gain", "leaf_weight", "bin_edges"):
         np.testing.assert_array_equal(getattr(packed, f).numpy(),
@@ -88,7 +85,7 @@ def test_gradientless_equals_jax(parties, loss):
 
 
 def test_gradientless_native_draws():
-    """Native draws (the default): the selftest's checks — party-local
+    """The selftest's checks from its key, ``PRNGKey(0)`` — party-local
     trees, the rate fit no worse, the ledger exact — at K = 1."""
     info = t_selftest.check_gradientless(2, loss="logistic", n=300)
     assert len(info["tree_counts"]) == 2

@@ -23,6 +23,7 @@ from repro.launch import serve as j_serve
 from repro.models import model as j_model
 from repro_torch import convert
 from repro_torch.configs import get_smoke_config
+from repro_torch.core import prng
 from repro_torch.launch import serve as t_serve
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -66,14 +67,14 @@ def test_greedy_generate_matches_jax(arch):
 
 
 def test_temperature_sampling_draws_from_the_generator():
-    """Temperature decode draws from the given ``torch.Generator``: the
-    same seed gives the same tokens, every token inside the vocabulary."""
+    """Temperature decode draws from the given key's stream: the same key
+    gives the same tokens, every token inside the vocabulary."""
     cfg = get_smoke_config("smollm-135m")
     model = convert.lm_params_from_numpy(cfg, convert.lm_numpy_params(cfg, 8),
                                          "cpu")
     prompts = torch.from_numpy(chip_smoke.lm_case_inputs(cfg, PROMPT)[0]).long()
     runs = [t_serve.generate(model, prompts, GEN, temperature=1.0,
-                             generator=torch.Generator().manual_seed(s))
+                             key=prng.PRNGKey(s))
             for s in (0, 0, 1)]
     assert torch.equal(runs[0], runs[1])
     assert not torch.equal(runs[0], runs[2])

@@ -26,6 +26,7 @@ from repro.optim import adamw as j_adamw
 from repro_torch import convert
 from repro_torch.checkpoint import io as t_io
 from repro_torch.configs import ARCH_IDS, get_smoke_config
+from repro_torch.core import prng
 from repro_torch.data import tokens as t_tokens
 from repro_torch.launch import train as t_launch
 from repro_torch.models import train as t_train
@@ -73,7 +74,7 @@ def test_train_step_matches_jax(arch):
                                           for k, v in batch.items()})
 
     state = t_train.init_train_state(
-        cfg, model=convert.lm_params_from_numpy(cfg, tree, "cpu"))
+        None, cfg, model=convert.lm_params_from_numpy(cfg, tree, "cpu"))
     step = t_train.make_train_step(cfg, **SCHEDULE)
     state, metrics = step(state, t_launch.to_device(batch, "cpu"))
 
@@ -209,10 +210,9 @@ def test_launcher_refuses_the_cpu_unless_asked():
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_loss_decreases(arch):
     """Five steps on one batch reduce the ce (the JAX smoke test's check),
-    from the port's native init at the default bf16 compute."""
+    from the port's init (``PRNGKey(1)``) at the default bf16 compute."""
     cfg = get_smoke_config(arch)
-    state = t_train.init_train_state(cfg, "cpu",
-                                     torch.Generator().manual_seed(1))
+    state = t_train.init_train_state(prng.PRNGKey(1), cfg, "cpu")
     step = t_train.make_train_step(cfg, peak_lr=1e-3, warmup=0)
     batch = t_launch.to_device(_batch(cfg, 16), "cpu")
     state, m0 = step(state, batch)
@@ -225,25 +225,32 @@ def test_loss_decreases(arch):
 @pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-7b", "whisper-large-v3",
                                   "granite-moe-3b-a800m"])
 def test_native_init_matches_jax_statistics(arch):
-    """Native init draws the JAX init's distributions: for each block of
-    the pattern, against the JAX ``init_block``, every constant leaf equal
-    and every drawn leaf's std within 10% (or four standard errors of
-    the ratio of two n-sample stds, 4 / sqrt(n), for small leaves)."""
+    """The port's init is the JAX init: for each block of the pattern,
+    ``blocks.init_block(PRNGKey(i))`` equals the JAX ``init_block`` leaf
+    for leaf (values and dtypes), and the model built from ``PRNGKey(0)``
+    holds the JAX ``init_params`` tree."""
     from repro.models import blocks as j_blocks
+    from repro_torch.models import blocks as t_blocks
 
     cfg = get_smoke_config(arch)
-    tree = convert.lm_params_to_numpy(
-        t_train.init_train_state(cfg, "cpu").model)
     j_cfg = jax_model_config(cfg)
     for i, bt in enumerate(cfg.pattern):
         want = dict(convert._flatten(jax.tree.map(np.asarray, j_blocks
                     .init_block(jax.random.PRNGKey(i), bt, j_cfg))))
-        got = dict(convert._flatten(tree["units"][i]))
-        assert list(got) == list(want)
+        got = dict(convert._flatten(t_blocks.init_block(prng.PRNGKey(i), bt,
+                                                        cfg)))
+        assert sorted(got) == sorted(want)
         for path, w in want.items():
-            leaf = got[path][0]               # unit 0 of the stacked leaf
-            if w.std() == 0:
-                np.testing.assert_array_equal(leaf, w)
-            else:
-                tol = max(0.1, 4 / np.sqrt(w.size))
-                assert abs(leaf.std() / w.std() - 1) < tol, (bt, path)
+            leaf = got[path]
+            assert str(leaf.dtype).split(".")[-1] == w.dtype.name, path
+            np.testing.assert_array_equal(leaf.float().numpy(),
+                                          w.astype(np.float32), str(path))
+    tree = convert.lm_params_to_numpy(
+        t_train.init_train_state(prng.PRNGKey(0), cfg, "cpu").model)
+    want = dict(convert._flatten(jax.tree.map(
+        np.asarray, j_model.init_params(jax.random.PRNGKey(0), j_cfg))))
+    got = dict(convert._flatten(tree))
+    assert sorted(got) == sorted(want)
+    for path, w in want.items():
+        np.testing.assert_array_equal(np.asarray(got[path], np.float32),
+                                      w.astype(np.float32), str(path))

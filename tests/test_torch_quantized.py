@@ -1,8 +1,8 @@
 """Port vs JAX package: the quantized serving tier on the CPU.
 
-``quantize_stats`` and ``quantize_ensemble`` take the JAX package's
-stochastic-rounding uniforms as an input; with them the int8/int16 tables
-must be the JAX tables bit for bit (nearest and stochastic rounding, 8 and
+``quantize_stats`` and ``quantize_ensemble`` draw the JAX package's
+stochastic-rounding uniforms from the same key (``core/prng.py``), or take
+them as an input; the int8/int16 tables must be the JAX tables bit for bit (nearest and stochastic rounding, 8 and
 16 bits, K = 1 and 3), and quantized margins the JAX margins bit for bit on
 every impl.  ``margin_delta_bound`` is a float32 sum in XLA's reduction
 order, which torch does not follow: it is held at rtol 1e-6.  The
@@ -38,6 +38,7 @@ from repro.data import synthetic as j_synthetic
 from repro.federation import compress as j_compress
 from repro_torch.checkpoint import io as t_io
 from repro_torch.core import boosting as t_boosting
+from repro_torch.core import prng
 from repro_torch.core import types as t_types
 from repro_torch.data import synthetic as t_synthetic
 from repro_torch.federation import compress as t_compress
@@ -100,8 +101,7 @@ def test_quantize_stats_equals_jax(bits, stochastic):
     jq, js = j_compress.quantize_stats(jnp.asarray(x), bits, KEY,
                                        stochastic=stochastic)
     tq, ts = t_compress.quantize_stats(
-        torch.from_numpy(x), bits, torch.from_numpy(_uniform(x.shape)),
-        stochastic=stochastic)
+        torch.from_numpy(x), bits, prng.PRNGKey(0), stochastic=stochastic)
     assert tq.numpy().dtype == np.asarray(jq).dtype
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
@@ -123,13 +123,10 @@ def test_quantize_ensemble_equals_jax(bits, k):
         arrays, meta = random_packed_arrays(rng, [5, 4, 3, 2], 3, 9,
                                             num_bins=num_bins, k=k)
         jp, tp = jax_packed(arrays, meta), torch_packed(arrays, meta)
-        shape = arrays["leaf_weight"].shape + ((1,) if k is None else ())
         for stochastic in (True, False):
             jq = j_types.quantize_ensemble(jp, bits, key=KEY,
                                            stochastic=stochastic)
-            tq = t_types.quantize_ensemble(
-                tp, bits, uniform=torch.from_numpy(_uniform(shape)),
-                stochastic=stochastic)
+            tq = t_types.quantize_ensemble(tp, bits, stochastic=stochastic)
             _assert_tables_equal(tq, jq)
             assert tq.threshold.dtype == (torch.int8 if num_bins <= 126
                                           else torch.int16)
@@ -156,10 +153,7 @@ def test_quantized_margins_equal_jax(bits):
     rng = np.random.default_rng(20 + bits)
     arrays, meta = random_packed_arrays(rng, [5, 4, 3, 2, 2], 3, 23)
     jq = j_types.quantize_ensemble(jax_packed(arrays, meta), bits, key=KEY)
-    tq = t_types.quantize_ensemble(
-        torch_packed(arrays, meta), bits,
-        uniform=torch.from_numpy(_uniform(arrays["leaf_weight"].shape
-                                          + (1,))))
+    tq = t_types.quantize_ensemble(torch_packed(arrays, meta), bits)
     x = hard_rows(rng, 300, arrays["bin_edges"])
     twins = {"fused": "fused", "fused-cuda": "fused", "weighted": "weighted",
              "cuda": "weighted", "packed": "packed", "loop": "loop"}
@@ -224,7 +218,7 @@ def test_quantized_checkpoint_roundtrip_both_ways(tmp_path):
     rng = np.random.default_rng(3)
     arrays, meta = random_packed_arrays(rng, [3, 2], 3, 7, k=3)
     tq = t_types.quantize_ensemble(torch_packed(arrays, meta), 8,
-                                   generator=torch.Generator().manual_seed(1))
+                                   key=prng.PRNGKey(1))
     path = str(tmp_path / "q")
     t_io.save_ensemble(path, tq)
     jq = j_io.load_ensemble(path)
@@ -240,7 +234,8 @@ def test_quantized_checkpoint_roundtrip_both_ways(tmp_path):
 
 
 def test_serve_quantized_cli_and_hot_swap(tmp_path, capsys):
-    """``--quantize 8`` quantizes with seed-0 draws and prints the bound;
+    """``--quantize 8`` quantizes from ``PRNGKey(0)`` (the committed JAX
+    int8 tables) and prints the bound;
     a quantized checkpoint serves as it is; ``--metrics-port 0`` prints
     the self-scrape; ``ModelSlot`` swaps in a quantized candidate and
     refuses a corrupt one."""
@@ -249,8 +244,10 @@ def test_serve_quantized_cli_and_hot_swap(tmp_path, capsys):
                   "--quantize", "8", "--metrics-port", "0"])
     out = capsys.readouterr().out
     f32 = t_io.load_ensemble(str(CKPT), device="cpu")
-    mine = t_types.quantize_ensemble(
-        f32, 8, generator=torch.Generator().manual_seed(0))
+    mine = t_types.quantize_ensemble(f32, 8)
+    committed_q8 = t_io.load_ensemble(str(quantized_path(8)), device="cpu")
+    for f in QUANTIZED_FIELDS:
+        assert torch.equal(getattr(mine, f), getattr(committed_q8, f)), f
     assert (f"serving int8 quantized tables: margin error bound "
             f"{t_types.margin_delta_bound(mine):.3e}") in out
     assert "self-scrape http://127.0.0.1:" in out

@@ -7,8 +7,8 @@ configuration fingerprint) and resumed from the stored margins must give
 the uninterrupted run's packed ensemble byte for byte, as the JAX
 package's ``tests/test_fault.py`` requires of itself.  Across packages:
 the JAX package trains the first rounds and writes the state, the port
-loads it and finishes with the JAX masks, and the stitched model is the
-JAX full run's.
+loads it and finishes from the state's run key (drawing the JAX masks
+itself), and the stitched model is the JAX full run's.
 """
 
 import dataclasses
@@ -23,8 +23,8 @@ import torch
 from repro.checkpoint import io as j_io
 from repro.core import boosting as j_boosting
 from repro_torch.checkpoint import io as t_io
-from repro_torch.convert import goss_draws_from_numpy, masks_from_numpy
 from repro_torch.core import boosting as t_boosting
+from repro_torch.core import prng
 from repro_torch.core.types import (
     PACKED_ARRAYS,
     EnsembleModel,
@@ -32,7 +32,7 @@ from repro_torch.core.types import (
     unpack_ensemble,
 )
 from repro_torch.data import synthetic as t_synthetic
-from torch_parity import jax_config, jax_goss_draws, jax_step_masks
+from torch_parity import jax_config
 
 
 def _packed_bytes(model) -> list:
@@ -86,7 +86,7 @@ def test_resume_equals_uninterrupted(sampling, tmp_path):
 @pytest.mark.parametrize("sampling", ["uniform", "goss"])
 def test_cross_package_resume(sampling, tmp_path):
     """The JAX package trains rounds [0, 3) and writes the train state;
-    the port loads it and trains [3, 5) with the JAX draws; the stitched
+    the port loads it and trains [3, 5) from the state's key; the stitched
     packed ensemble is the JAX full run's, array for array and byte for
     byte."""
     ds = t_synthetic.load("default_credit_card", n=400)
@@ -104,15 +104,10 @@ def test_cross_package_resume(sampling, tmp_path):
     state = t_io.load_train_state(path, device="cpu")
     np.testing.assert_array_equal(state["rng_key"],
                                   np.asarray(jax.random.PRNGKey(0)))
-    n, d = ds.x_train.shape
-    if sampling == "goss":
-        masks = goss_draws_from_numpy(*jax_goss_draws(j_cfg, n, d),
-                                      device="cpu")
-    else:
-        masks = masks_from_numpy(*jax_step_masks(j_cfg, n, d), device="cpu")
     model, hist = t_boosting.train_fedgbf(
-        ds.x_train, ds.y_train, cfg, masks, start_round=3,
-        init_margin=state["margin"], backend="local-cuda", device="cpu")
+        ds.x_train, ds.y_train, cfg, prng.as_key(state["rng_key"]),
+        start_round=3, init_margin=state["margin"], backend="local-cuda",
+        device="cpu")
     stitched = pack_ensemble(_stitch(unpack_ensemble(state["packed"]),
                                      model))
     from repro.core.types import pack_ensemble as j_pack

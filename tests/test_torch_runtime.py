@@ -121,7 +121,7 @@ def test_masked_run_equals_jax(backend):
     bk = (backend if backend == "local" else t_backend.get_backend(
         backend, tree=cfg.tree, num_parties=parties))
     model, hist = t_boosting.train_fedgbf(
-        x, y, cfg, masks_from_numpy(smask, fmask, device="cpu"),
+        x, y, cfg, masks=masks_from_numpy(smask, fmask, device="cpu"),
         backend=bk, device="cpu", round_feature_mask=mask)
     packed = pack_ensemble(model)
     j_packed = j_pack(j_model)
@@ -133,7 +133,7 @@ def test_masked_run_equals_jax(backend):
                                   np.asarray(j_hist.final_margin))
     t_selftest.assert_no_banned_splits(packed, mask)
     unmasked, _ = t_boosting.train_fedgbf(
-        x, y, cfg, masks_from_numpy(smask, fmask, device="cpu"),
+        x, y, cfg, masks=masks_from_numpy(smask, fmask, device="cpu"),
         backend=bk, device="cpu")
     assert not all(torch.equal(a.feature, b.feature)
                    for a, b in zip(unmasked.forests, model.forests))

@@ -1,8 +1,8 @@
 """Port vs JAX package: ``train_fedgbf`` end to end, the launchers'
 training paths and the 20-round reference run (CPU).
 
-The port takes the masks the JAX scan engine draws (threefry cannot be
-reproduced in torch).  With them, trees must be exact (the port reproduces
+The port draws its masks from the same key as the JAX scan engine
+(``core/prng.py``), or takes explicit masks.  Trees must be exact (the port reproduces
 XLA's CPU arithmetic where it matters: ``exp``, the blocked cumsum, the FMA
 of the margin update); final margins exact on the reference run and within
 1e-6 elsewhere; history metrics 1e-5.
@@ -20,10 +20,10 @@ import torch
 from repro.core import boosting as j_boosting
 from repro.data import synthetic as j_synthetic
 from repro_torch.checkpoint import io as t_io
-from repro_torch.convert import masks_from_numpy
 from repro_torch.core import boosting as t_boosting
 from repro_torch.core import dynamic as t_dynamic
 from repro_torch.core import forest as t_forest
+from repro_torch.core import prng
 from repro_torch.core.types import TreeConfig as TTreeConfig
 from repro_torch.core.types import pack_ensemble
 from repro_torch.data import synthetic as t_synthetic
@@ -34,17 +34,16 @@ ATOL = 1e-5
 
 
 def _train_both(t_cfg, ds, backend, eval_every=1, valid=False):
+    """Both packages from ``PRNGKey(0)`` alone: the port draws the JAX
+    scan engine's masks itself."""
     j_cfg = jax_config(t_cfg)
-    n, d = ds.x_train.shape
-    smask, fmask = jax_step_masks(j_cfg, n, d)
     vkw = dict(x_valid=ds.x_test, y_valid=ds.y_test) if valid else {}
     jm, jh = j_boosting.train_fedgbf(
         jnp.asarray(ds.x_train), jnp.asarray(ds.y_train), j_cfg,
         jax.random.PRNGKey(0), eval_every=eval_every,
         **{k: jnp.asarray(v) for k, v in vkw.items()})
     tm, th = t_boosting.train_fedgbf(
-        ds.x_train, ds.y_train, t_cfg,
-        masks_from_numpy(smask, fmask, device="cpu"), backend=backend,
+        ds.x_train, ds.y_train, t_cfg, prng.PRNGKey(0), backend=backend,
         eval_every=eval_every, device="cpu", **vkw)
     return (jm, jh), (tm, th)
 
@@ -104,16 +103,15 @@ def test_shared_root_and_multiclass_equal_jax_scan():
 
 
 def test_reference_run_reproduces_checkpoint():
-    """The 20-round reference run on the CPU from the committed masks: the
-    78 trees of the committed checkpoint, its bin edges, its leaves, and
-    the JAX run's history and final margins."""
+    """The 20-round reference run on the CPU from ``PRNGKey(0)`` alone (no
+    masks input; the committed masks are what that key draws,
+    ``test_torch_prng.py``): the 78 trees of the committed checkpoint, its
+    bin edges, its leaves, and the JAX run's history and final margins."""
     ds = t_synthetic.load("default_credit_card")
     z = np.load(TRAIN)
-    masks = masks_from_numpy(z["sample_bits"], z["feature"], device="cpu",
-                             n=int(z["n"]))
     model, hist = t_boosting.train_fedgbf(
         ds.x_train, ds.y_train, t_boosting.dynamic_fedgbf_config(rounds=20),
-        masks, backend="local-cuda", device="cpu")
+        prng.PRNGKey(0), backend="local-cuda", device="cpu")
     packed = pack_ensemble(model)
     ckpt = t_io.load_ensemble(str(CKPT), device="cpu")
     assert packed.total_trees == 78
@@ -129,19 +127,23 @@ def test_reference_run_reproduces_checkpoint():
 
 
 def test_native_sampler_keep_counts():
+    """``draw_step_masks`` from a key: the scheduled keep counts, the same
+    masks again, and the JAX scan engine's masks of that key."""
     cfg = t_boosting.FedGBFConfig(rounds=6, n_trees_max=4, n_trees_min=2,
                                   rho_id_min=0.1, rho_id_max=0.3,
                                   rho_feat=0.6)
-    masks = t_forest.draw_step_masks(cfg, 1000, 10,
-                                     torch.Generator().manual_seed(3))
+    masks = t_forest.draw_step_masks(cfg, 1000, 10, prng.PRNGKey(3))
     sched, flat = t_dynamic.flat_schedule(cfg)
     keep = t_boosting._keep_counts(cfg, 1000)[flat.round_of_step]
     assert masks.sample.shape == (int(sched.n_trees.sum()), 1000)
     np.testing.assert_array_equal(masks.sample.sum(1).numpy(), keep)
     assert (masks.feature.sum(1) == 6).all()
-    again = t_forest.draw_step_masks(cfg, 1000, 10,
-                                     torch.Generator().manual_seed(3))
+    again = t_forest.draw_step_masks(cfg, 1000, 10, prng.PRNGKey(3))
     assert torch.equal(again.sample, masks.sample)
+    smask, fmask = jax_step_masks(jax_config(cfg), 1000, 10,
+                                  key=jax.random.PRNGKey(3))
+    np.testing.assert_array_equal(masks.sample.numpy(), smask)
+    np.testing.assert_array_equal(masks.feature.numpy(), fmask)
 
 
 def test_unported_options_and_no_fallback():
@@ -149,19 +151,18 @@ def test_unported_options_and_no_fallback():
     not sample masks; wrong shapes and a missing card raise."""
     ds = t_synthetic.load("default_credit_card", n=300)
     cfg = t_boosting.dynamic_fedgbf_config(rounds=2)
-    uniform = t_forest.draw_step_masks(cfg, 210, 23,
-                                       torch.Generator().manual_seed(0))
+    uniform = t_forest.draw_step_masks(cfg, 210, 23, prng.PRNGKey(0))
     with pytest.raises(TypeError, match="GossDraws"):
         t_boosting.train_fedgbf(ds.x_train, ds.y_train,
                                 dataclasses.replace(cfg, sampling="goss"),
-                                uniform, device="cpu")
+                                masks=uniform, device="cpu")
     with pytest.raises(ValueError, match="round_feature_mask shape"):
         t_boosting.train_fedgbf(ds.x_train, ds.y_train, cfg, device="cpu",
                                 round_feature_mask=np.ones((2, 22), bool))
     bad = t_forest.StepMasks(torch.ones(3, 210), torch.ones(3, 23,
                                                             dtype=bool))
     with pytest.raises(ValueError, match="scheduled builds"):
-        t_boosting.train_fedgbf(ds.x_train, ds.y_train, cfg, bad,
+        t_boosting.train_fedgbf(ds.x_train, ds.y_train, cfg, masks=bad,
                                 device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -191,16 +192,11 @@ def test_train_cli_reconciles_with_jax_launcher(tmp_path, capsys,
     monkeypatch.setattr("sys.argv", ["train_fedgbf", *args])
     j_cli.main()
     want = _round_lines(capsys.readouterr().out)
-    ds = j_synthetic.load("default_credit_card", n=2000)
-    smask, fmask = jax_step_masks(j_boosting.dynamic_fedgbf_config(3),
-                                  *ds.x_train.shape)
-    masks = tmp_path / "masks.npz"
-    np.savez(masks, sample_bits=np.packbits(smask.astype(np.uint8), axis=1),
-             feature=fmask, n=ds.x_train.shape[0])
+    # the port at its defaults: the masks drawn from PRNGKey(0)
     ckpt = tmp_path / "model"
     trace = tmp_path / "trace.json"
-    t_cli.main([*args, "--device", "cpu", "--masks", str(masks),
-                "--checkpoint", str(ckpt), "--trace", str(trace)])
+    t_cli.main([*args, "--device", "cpu", "--checkpoint", str(ckpt),
+                "--trace", str(trace)])
     got = _round_lines(capsys.readouterr().out)
     assert sorted(got) == sorted(want) == [0, 1, 2, 3]
     for key in want:
@@ -209,8 +205,17 @@ def test_train_cli_reconciles_with_jax_launcher(tmp_path, capsys,
     assert state["completed_rounds"] == 3
     assert state["packed"].total_trees == 11
     assert trace.stat().st_size > 0
+    # --masks overrides the draw (here with the draw itself, in the file's
+    # packed-bits format)
+    ds = j_synthetic.load("default_credit_card", n=600)
+    drawn = t_forest.draw_step_masks(t_boosting.dynamic_fedgbf_config(2),
+                                     *ds.x_train.shape, prng.PRNGKey(0))
+    masks = tmp_path / "masks.npz"
+    np.savez(masks, sample_bits=np.packbits(
+        drawn.sample.numpy().astype(np.uint8), axis=1),
+        feature=drawn.feature.numpy(), n=ds.x_train.shape[0])
     t_cli.main(["--device", "cpu", "--rounds", "2", "--n", "600",
-                "--backend", "local", "--log-json"])
+                "--backend", "local", "--log-json", "--masks", str(masks)])
     lines = [ln for ln in capsys.readouterr().out.splitlines()
              if ln.startswith('{"event":"round"')]
     assert len(lines) == 2
