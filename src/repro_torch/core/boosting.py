@@ -247,6 +247,10 @@ def train_fedgbf(
         d divisible by its parties (``tabular.pad_features``).
       eval_every: evaluate metrics every k rounds (and at the last).
       tracer: an ``obs.trace.Tracer``; None uses the process-global one.
+        The call runs under it (``obs.trace.use``): ``job.*``,
+        ``binning``, ``round N`` with ``round.gradients`` and
+        ``round.update``, and below them the tree build's, the
+        federation's and the histogram kernel's spans.
       device: where to train; None = ``cuda`` (``device.resolve``).
       round_feature_mask: optional (rounds, d) bool, the federation's
         party-dropout mask (``federation.runtime.degradation_masks``):
@@ -292,119 +296,135 @@ def train_fedgbf(
     use_goss = cfg.sampling == "goss"
     t_call = time.perf_counter()
 
-    x = _as_tensor(x, torch.float32, dev)
-    y32 = _as_tensor(y, torch.float32, dev)
-    n, d = x.shape
-    with tracer.span("binning", cat="train"):
-        binned, edges = binning.fit_bin(x, cfg.tree.num_bins)
-        binned_valid = (binning.bin_data(
-            _as_tensor(x_valid, torch.float32, dev), edges)
-            if x_valid is not None else None)
-        yv32 = (_as_tensor(y_valid, torch.float32, dev)
-                if y_valid is not None else None)
+    with trace_mod.use(tracer):
+        with tracer.span("job.inputs", cat="train"):
+            x = _as_tensor(x, torch.float32, dev)
+            y32 = _as_tensor(y, torch.float32, dev)
+        n, d = x.shape
+        with tracer.span("binning", cat="train"):
+            binned, edges = binning.fit_bin(x, cfg.tree.num_bins)
+            binned_valid = (binning.bin_data(
+                _as_tensor(x_valid, torch.float32, dev), edges)
+                if x_valid is not None else None)
+            yv32 = (_as_tensor(y_valid, torch.float32, dev)
+                    if y_valid is not None else None)
 
-    sched, flat = dynamic.flat_schedule(cfg)
-    n_steps = len(flat.round_of_step)
-    if masks is None:
-        rng = prng.PRNGKey(0) if rng is None else prng.as_key(rng)
-        masks = forest_mod.draw_step_masks(cfg, n, d, rng.to(dev))
-    want = forest_mod.GossDraws if use_goss else forest_mod.StepMasks
-    if not isinstance(masks, want):
-        raise TypeError(f"sampling={cfg.sampling!r} takes "
-                        f"{want.__name__}, got {type(masks).__name__}")
-    if (tuple(masks[0].shape) != (n_steps, n)
-            or tuple(masks.feature.shape) != (n_steps, d)):
-        raise ValueError(
-            f"masks: expected ({n_steps}, {n}) sample and ({n_steps}, {d}) "
-            f"feature masks for {n_steps} scheduled builds, got "
-            f"{tuple(masks[0].shape)} and {tuple(masks.feature.shape)}")
-    smask_all = masks[0].to(device=dev, dtype=torch.float32)
-    fmask_all = masks.feature.to(device=dev, dtype=torch.bool)
-    round_mask = (None if round_feature_mask is None
-                  else torch.from_numpy(round_feature_mask).to(dev))
-    goss_round = _goss_counts(cfg, n) if use_goss else None
+        with tracer.span("job.masks", cat="train"):
+            sched, flat = dynamic.flat_schedule(cfg)
+            n_steps = len(flat.round_of_step)
+            if masks is None:
+                rng = prng.PRNGKey(0) if rng is None else prng.as_key(rng)
+                masks = forest_mod.draw_step_masks(cfg, n, d, rng.to(dev))
+            want = forest_mod.GossDraws if use_goss else forest_mod.StepMasks
+            if not isinstance(masks, want):
+                raise TypeError(f"sampling={cfg.sampling!r} takes "
+                                f"{want.__name__}, got "
+                                f"{type(masks).__name__}")
+            if (tuple(masks[0].shape) != (n_steps, n)
+                    or tuple(masks.feature.shape) != (n_steps, d)):
+                raise ValueError(
+                    f"masks: expected ({n_steps}, {n}) sample and "
+                    f"({n_steps}, {d}) feature masks for {n_steps} scheduled "
+                    f"builds, got {tuple(masks[0].shape)} and "
+                    f"{tuple(masks.feature.shape)}")
+            smask_all = masks[0].to(device=dev, dtype=torch.float32)
+            fmask_all = masks.feature.to(device=dev, dtype=torch.bool)
+            round_mask = (None if round_feature_mask is None
+                          else torch.from_numpy(round_feature_mask).to(dev))
+            goss_round = _goss_counts(cfg, n) if use_goss else None
 
-    lr = cfg.learning_rate
-    rounds_idx = np.arange(1, cfg.rounds + 1)
-    do_eval = (rounds_idx % eval_every == 0) | (rounds_idx == cfg.rounds)
-    offsets = np.concatenate([[0], np.cumsum(sched.n_trees)])
-    y_hat = (obj.init_raw(n, cfg.base_score, device=dev) if init_margin is None
-             else _as_tensor(init_margin, torch.float32, dev))
-    y_hat_valid = None
-    if binned_valid is not None:
-        y_hat_valid = (obj.init_raw(binned_valid.shape[0], cfg.base_score,
-                                    device=dev)
-                       if init_margin_valid is None
-                       else _as_tensor(init_margin_valid, torch.float32, dev))
+        lr = cfg.learning_rate
+        rounds_idx = np.arange(1, cfg.rounds + 1)
+        do_eval = (rounds_idx % eval_every == 0) | (rounds_idx == cfg.rounds)
+        offsets = np.concatenate([[0], np.cumsum(sched.n_trees)])
+        y_hat = (obj.init_raw(n, cfg.base_score, device=dev)
+                 if init_margin is None
+                 else _as_tensor(init_margin, torch.float32, dev))
+        y_hat_valid = None
+        if binned_valid is not None:
+            y_hat_valid = (
+                obj.init_raw(binned_valid.shape[0], cfg.base_score,
+                             device=dev)
+                if init_margin_valid is None
+                else _as_tensor(init_margin_valid, torch.float32, dev))
 
-    history = TrainHistory(start_round=start)
-    forests, train_vecs, valid_vecs = [], [], []
-    _synchronize(dev)
-    for width, first, n_rounds, rdr in _plan_segments(cfg, n, start, stop):
-        t_seg = time.perf_counter()
-        for m in range(first, first + n_rounds):
-            t0 = time.perf_counter()
-            s, e = int(offsets[m]), int(offsets[m + 1])
-            with tracer.span(f"round {m + 1}", cat="train",
-                             args={"n_trees": width,
-                                   "rho_id": round(float(sched.rho_id[m]),
-                                                   6)}):
-                g, h = obj.grad_hess(y32, y_hat)
-                smask = smask_all[s:e]
-                if use_goss:
-                    smask = forest_mod.goss_weights(g, smask, *goss_round[m])
-                fmask = fmask_all[s:e]
-                if round_mask is not None:
-                    # party-dropout degradation: the round's surviving
-                    # columns, composed with the drawn masks
-                    fmask = fmask & round_mask[m][None, :]
-                trees, per_tree = bk.build_forest_per_tree(
-                    binned, g, h, smask, fmask, cfg.tree,
-                    root_delta_rows=rdr)
-                y_hat = _boost(y_hat, per_tree, lr)
-                if do_eval[m]:
-                    train_vecs.append(obj.metric_vector(y32, y_hat))
-                if binned_valid is not None:
-                    vp = tree_mod.predict_trees(trees, binned_valid,
-                                                cfg.tree.max_depth)
-                    y_hat_valid = _boost(y_hat_valid, vp, lr)
-                    if do_eval[m]:
-                        valid_vecs.append(obj.metric_vector(yv32,
-                                                            y_hat_valid))
-                forests.append(trees)
-                _synchronize(dev)
-            history.wall_time_s.append(time.perf_counter() - t0)
-        t_end = time.perf_counter()
-        history.segments.append({
-            "width": width, "first_round": first, "rounds": n_rounds,
-            "root_delta_rows": rdr, "wall_s": t_end - t_seg,
-            "t0": t_seg, "t1": t_end,
-        })
+        history = TrainHistory(start_round=start)
+        forests, train_vecs, valid_vecs = [], [], []
+        _synchronize(dev)
+        for width, first, n_rounds, rdr in _plan_segments(cfg, n, start,
+                                                          stop):
+            t_seg = time.perf_counter()
+            for m in range(first, first + n_rounds):
+                t0 = time.perf_counter()
+                s, e = int(offsets[m]), int(offsets[m + 1])
+                with tracer.span(f"round {m + 1}", cat="train",
+                                 args={"n_trees": width,
+                                       "rho_id": round(
+                                           float(sched.rho_id[m]), 6)}):
+                    with tracer.span("round.gradients", cat="train"):
+                        g, h = obj.grad_hess(y32, y_hat)
+                        smask = smask_all[s:e]
+                        if use_goss:
+                            smask = forest_mod.goss_weights(
+                                g, smask, *goss_round[m])
+                        fmask = fmask_all[s:e]
+                        if round_mask is not None:
+                            # party-dropout degradation: the round's
+                            # surviving columns, composed with the drawn
+                            # masks
+                            fmask = fmask & round_mask[m][None, :]
+                    trees, per_tree = bk.build_forest_per_tree(
+                        binned, g, h, smask, fmask, cfg.tree,
+                        root_delta_rows=rdr)
+                    with tracer.span("round.update", cat="train"):
+                        y_hat = _boost(y_hat, per_tree, lr)
+                        if do_eval[m]:
+                            train_vecs.append(obj.metric_vector(y32, y_hat))
+                        if binned_valid is not None:
+                            vp = tree_mod.predict_trees(trees, binned_valid,
+                                                        cfg.tree.max_depth)
+                            y_hat_valid = _boost(y_hat_valid, vp, lr)
+                            if do_eval[m]:
+                                valid_vecs.append(obj.metric_vector(
+                                    yv32, y_hat_valid))
+                        forests.append(trees)
+                        _synchronize(dev)
+                history.wall_time_s.append(time.perf_counter() - t0)
+            t_end = time.perf_counter()
+            history.segments.append({
+                "width": width, "first_round": first, "rounds": n_rounds,
+                "root_delta_rows": rdr, "wall_s": t_end - t_seg,
+                "t0": t_seg, "t1": t_end,
+            })
 
-    keys = obj.metric_keys
-    tr_np = (torch.stack(train_vecs).cpu().numpy() if train_vecs
-             else None)
-    va_np = torch.stack(valid_vecs).cpu().numpy() if valid_vecs else None
-    history.n_trees = [int(v) for v in sched.n_trees[start:stop]]
-    history.rho_id = [dynamic.rho_id_schedule(cfg, m)
-                      for m in range(start + 1, stop + 1)]
-    eval_rounds = [int(m) for m in np.nonzero(do_eval)[0]
-                   if start <= m < stop]
-    for i, m in enumerate(eval_rounds):
-        history.rounds.append(m + 1)
-        tr = dict(zip(keys, (float(v) for v in tr_np[i])))
-        history.train.append(tr)
-        if va_np is not None:
-            history.valid.append(dict(zip(keys, (float(v) for v in va_np[i]))))
-        if verbose:
-            msg = ", ".join(f"{k}={v:.4f}" for k, v in tr.items())
-            print(f"[round {m + 1:3d}] trees={history.n_trees[m - start]} "
-                  f"rho_id={history.rho_id[m - start]:.2f} {msg}")
-    history.final_margin = y_hat.cpu().numpy()
-    if y_hat_valid is not None:
-        history.final_margin_valid = y_hat_valid.cpu().numpy()
-    history.overhead_s = max(0.0, time.perf_counter() - t_call
-                             - history.total_wall_time_s)
+        with tracer.span("job.fetch", cat="train"):
+            keys = obj.metric_keys
+            tr_np = (torch.stack(train_vecs).cpu().numpy() if train_vecs
+                     else None)
+            va_np = (torch.stack(valid_vecs).cpu().numpy() if valid_vecs
+                     else None)
+            history.n_trees = [int(v) for v in sched.n_trees[start:stop]]
+            history.rho_id = [dynamic.rho_id_schedule(cfg, m)
+                              for m in range(start + 1, stop + 1)]
+            eval_rounds = [int(m) for m in np.nonzero(do_eval)[0]
+                           if start <= m < stop]
+            for i, m in enumerate(eval_rounds):
+                history.rounds.append(m + 1)
+                tr = dict(zip(keys, (float(v) for v in tr_np[i])))
+                history.train.append(tr)
+                if va_np is not None:
+                    history.valid.append(dict(zip(
+                        keys, (float(v) for v in va_np[i]))))
+                if verbose:
+                    msg = ", ".join(f"{k}={v:.4f}" for k, v in tr.items())
+                    print(f"[round {m + 1:3d}] "
+                          f"trees={history.n_trees[m - start]} "
+                          f"rho_id={history.rho_id[m - start]:.2f} {msg}")
+            history.final_margin = y_hat.cpu().numpy()
+            if y_hat_valid is not None:
+                history.final_margin_valid = y_hat_valid.cpu().numpy()
+        history.overhead_s = max(0.0, time.perf_counter() - t_call
+                                 - history.total_wall_time_s)
     model = EnsembleModel(
         forests=tuple(forests),
         learning_rate=cfg.learning_rate,

@@ -21,19 +21,7 @@ run of equal ids summed in order — deterministic, unlike the atomics of
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
-
-#: Optional recorder of histogram row-passes: set it to a list, run one
-#: build, read it, reset it to None.  Each pass appends ``{"tag", "rows",
-#: "trees"}``.  None (the default) records nothing.
-PASS_METER: Optional[list] = None
-
-
-def _record_pass(tag: str, rows: int, trees: int) -> None:
-    if PASS_METER is not None:
-        PASS_METER.append({"tag": tag, "rows": int(rows), "trees": int(trees)})
 
 
 def segment_sum(data: torch.Tensor, ids: torch.Tensor,
@@ -125,7 +113,6 @@ def compute_round_histogram(binned: torch.Tensor, g: torch.Tensor,
                                         root_delta_rows)
     n, d = binned.shape
     t = weight.shape[0]
-    _record_pass("round", n, t)
     data = stack_stats(g, h, weight)
     data = data.reshape(t * n, data.shape[-1])            # (T*n, S)
     tree_node = (torch.arange(t, dtype=torch.int32, device=assign.device)
@@ -161,12 +148,10 @@ def root_histogram_via_delta(binned: torch.Tensor, g: torch.Tensor,
         base_tree_fn = compute_histogram
     t, n = weight.shape
     n_rows = min(n_rows, n)
-    _record_pass("round", n, 1)
     shared = base_tree_fn(
         binned, g, h, torch.ones(n, dtype=torch.float32, device=g.device),
         torch.zeros(n, dtype=torch.int32, device=g.device), 1, num_bins,
     )[None]                                               # (1, 1, d, B, S)
-    _record_pass("root_delta", n_rows, t)
     # stable sort: masked-out rows (w == 0) first, in ascending row order
     order = torch.sort((weight > 0).to(torch.int8), dim=1,
                        stable=True).indices[:, :n_rows]  # (T, n_rows)

@@ -35,6 +35,7 @@ from repro_torch.core.types import (
     TreeConfig,
     serving_tables,
 )
+from repro_torch.obs import trace as trace_mod
 
 
 def _read_feature(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
@@ -326,9 +327,18 @@ def build_round(binned: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     Returns:
       (trees, assign): stacked ``TreeArrays`` with a leading tree axis, and
       every sample's leaf index per tree.
+
+    Each level reports four phases to the process tracer
+    (``obs.trace.global_tracer``), the level in ``args``:
+    ``tree.histogram`` (compaction, the histogram or child provider, the
+    sibling subtraction), ``tree.split`` (the chooser and the level's
+    tables), ``tree.route`` and, where compaction needs liveness counts,
+    ``tree.leaf``; the final ``tree.leaf`` is the leaf statistics, their
+    weights and the assembled tables.
     """
     hist_fn, child_fn, choose_fn, route_fn, leaf_fn = _round_providers(
         cfg, backend)
+    tracer = trace_mod.global_tracer()
     T, n = sample_mask.shape
     device = sample_mask.device
     assign = torch.zeros((T, n), dtype=torch.int32, device=device)
@@ -342,104 +352,113 @@ def build_round(binned: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         width = 2 ** level
         a_width = cfg.active_width(level)
         compacted = a_width < width
-        if compacted:
-            # frontier compaction: live node ids first (stable, ascending),
-            # so slot k < live_count holds the k-th live node; dead nodes
-            # map to the trash id A (weight-masked out), invalid slots to a
-            # dummy row that is never read
-            order = torch.sort((~live).to(torch.int8), dim=1,
-                               stable=True).indices
-            slot_node = order[:, :a_width].to(torch.int32)   # (T, A)
-            live_count = live.sum(1).to(torch.int32)
-            slot_valid = (torch.arange(a_width, device=device)[None, :]
-                          < live_count[:, None])
-            scatter_node = torch.where(slot_valid, slot_node,
-                                       torch.full_like(slot_node, width))
-            table = torch.full((T, width + 1), a_width, dtype=torch.int32,
-                               device=device)
-            table.scatter_(1, scatter_node.long(), torch.arange(
-                a_width, dtype=torch.int32, device=device).expand(T, -1)
-                .contiguous())
-            slot_assign = torch.gather(table, 1, assign.long())
-            w_level = sample_mask * (slot_assign < a_width).to(
-                sample_mask.dtype)
-            id_level = torch.clamp(slot_assign, max=a_width - 1)
-        else:
-            slot_node = table = slot_valid = None
-            w_level = sample_mask
-            id_level = assign
-
-        if cfg.hist_subtraction and level >= 1:
-            # accumulate only the left children at parent-slot width and
-            # derive every right sibling from the carried parent histograms
-            side = assign % 2
-            cslot = prev_id * 2 + side                   # child-slot space
-            left = child_fn(binned, g, h, prev_w, cslot, prev_a,
-                            cfg.num_bins, level=level)
-            sib = hist_mod.derive_sibling(prev_hist, left)
+        phase = {"level": level}
+        with tracer.span("tree.histogram", cat="tree", args=phase):
             if compacted:
-                # a live slot's parent is a valid previous-level slot
-                pslot = (torch.gather(prev_table, 1, (slot_node // 2).long())
-                         if prev_table is not None else slot_node // 2)
-                cidx = torch.clamp(pslot * 2 + slot_node % 2, 0,
-                                   2 * prev_a - 1)
-                hist = sib[t_rows, cidx.long()]
+                # frontier compaction: live node ids first (stable,
+                # ascending), so slot k < live_count holds the k-th live
+                # node; dead nodes map to the trash id A (weight-masked
+                # out), invalid slots to a dummy row that is never read
+                order = torch.sort((~live).to(torch.int8), dim=1,
+                                   stable=True).indices
+                slot_node = order[:, :a_width].to(torch.int32)   # (T, A)
+                live_count = live.sum(1).to(torch.int32)
+                slot_valid = (torch.arange(a_width, device=device)[None, :]
+                              < live_count[:, None])
+                scatter_node = torch.where(slot_valid, slot_node,
+                                           torch.full_like(slot_node, width))
+                table = torch.full((T, width + 1), a_width,
+                                   dtype=torch.int32, device=device)
+                table.scatter_(1, scatter_node.long(), torch.arange(
+                    a_width, dtype=torch.int32, device=device).expand(T, -1)
+                    .contiguous())
+                slot_assign = torch.gather(table, 1, assign.long())
+                w_level = sample_mask * (slot_assign < a_width).to(
+                    sample_mask.dtype)
+                id_level = torch.clamp(slot_assign, max=a_width - 1)
             else:
-                hist = sib
-        else:
-            kw = {"level": level}
-            if level == 0 and root_delta_rows:
-                kw["root_delta_rows"] = root_delta_rows
-            hist = hist_fn(binned, g, h, w_level, id_level, a_width,
-                           cfg.num_bins, **kw)
+                slot_node = table = slot_valid = None
+                w_level = sample_mask
+                id_level = assign
 
-        decision = choose_fn(hist, feature_mask)         # (T, A) fields
-        gain_pos = torch.clamp(decision.gain, min=0.0)
-        if compacted:
-            feat = torch.where(slot_valid, decision.feature,
-                               torch.full_like(decision.feature, -1))
-            thr = torch.where(slot_valid, decision.threshold,
-                              torch.full_like(decision.threshold,
-                                              cfg.num_bins))
-            gn = torch.where(slot_valid, gain_pos,
-                             torch.zeros_like(gain_pos))
-            feature_lvl = _scatter_level(feat, slot_node, width, -1)
-            threshold_lvl = _scatter_level(thr, slot_node, width,
-                                           cfg.num_bins)
-            gain_lvl = _scatter_level(gn, slot_node, width, 0.0)
-            decision_lvl = split_mod.SplitDecision(feature_lvl,
-                                                   threshold_lvl, gain_lvl)
-        else:
-            feature_lvl, threshold_lvl, gain_lvl = (
-                decision.feature, decision.threshold, gain_pos)
-            decision_lvl = decision
-        features.append(feature_lvl)
-        thresholds.append(threshold_lvl)
-        gains.append(gain_lvl)
-        assign = route_fn(binned, assign, decision_lvl)
+            if cfg.hist_subtraction and level >= 1:
+                # accumulate only the left children at parent-slot width
+                # and derive every right sibling from the carried parent
+                # histograms
+                side = assign % 2
+                cslot = prev_id * 2 + side                 # child-slot space
+                left = child_fn(binned, g, h, prev_w, cslot, prev_a,
+                                cfg.num_bins, level=level)
+                sib = hist_mod.derive_sibling(prev_hist, left)
+                if compacted:
+                    # a live slot's parent is a valid previous-level slot
+                    pslot = (torch.gather(prev_table, 1,
+                                          (slot_node // 2).long())
+                             if prev_table is not None else slot_node // 2)
+                    cidx = torch.clamp(pslot * 2 + slot_node % 2, 0,
+                                       2 * prev_a - 1)
+                    hist = sib[t_rows, cidx.long()]
+                else:
+                    hist = sib
+            else:
+                kw = {"level": level}
+                if level == 0 and root_delta_rows:
+                    kw["root_delta_rows"] = root_delta_rows
+                hist = hist_fn(binned, g, h, w_level, id_level, a_width,
+                               cfg.num_bins, **kw)
+
+        with tracer.span("tree.split", cat="tree", args=phase):
+            decision = choose_fn(hist, feature_mask)       # (T, A) fields
+            gain_pos = torch.clamp(decision.gain, min=0.0)
+            if compacted:
+                feat = torch.where(slot_valid, decision.feature,
+                                   torch.full_like(decision.feature, -1))
+                thr = torch.where(slot_valid, decision.threshold,
+                                  torch.full_like(decision.threshold,
+                                                  cfg.num_bins))
+                gn = torch.where(slot_valid, gain_pos,
+                                 torch.zeros_like(gain_pos))
+                feature_lvl = _scatter_level(feat, slot_node, width, -1)
+                threshold_lvl = _scatter_level(thr, slot_node, width,
+                                               cfg.num_bins)
+                gain_lvl = _scatter_level(gn, slot_node, width, 0.0)
+                decision_lvl = split_mod.SplitDecision(
+                    feature_lvl, threshold_lvl, gain_lvl)
+            else:
+                feature_lvl, threshold_lvl, gain_lvl = (
+                    decision.feature, decision.threshold, gain_pos)
+                decision_lvl = decision
+            features.append(feature_lvl)
+            thresholds.append(threshold_lvl)
+            gains.append(gain_lvl)
+        with tracer.span("tree.route", cat="tree", args=phase):
+            assign = route_fn(binned, assign, decision_lvl)
 
         next_level = level + 1
         if (next_level < cfg.max_depth
                 and cfg.active_width(next_level) < 2 ** next_level):
             # a child is live iff its parent split and it holds weighted
             # samples; the count is the LAST stat channel at any K
-            counts = leaf_fn(g, h, sample_mask, assign,
-                             2 ** next_level)[..., -1]
-            live = (counts > 0) & torch.repeat_interleave(
-                feature_lvl >= 0, 2, dim=1)
+            with tracer.span("tree.leaf", cat="tree", args=phase):
+                counts = leaf_fn(g, h, sample_mask, assign,
+                                 2 ** next_level)[..., -1]
+                live = (counts > 0) & torch.repeat_interleave(
+                    feature_lvl >= 0, 2, dim=1)
         else:
             live = None
         prev_hist, prev_id, prev_w = hist, id_level, w_level
         prev_a, prev_table = a_width, table
 
-    leaf_hist = leaf_fn(g, h, sample_mask, assign, cfg.num_leaves)
-    weights = split_mod.leaf_weights(leaf_hist, cfg)      # (T, L[, K])
-    trees = TreeArrays(
-        feature=torch.cat(features, dim=1),
-        threshold=torch.cat(thresholds, dim=1),
-        gain=torch.cat(gains, dim=1),
-        leaf_weight=weights,
-    )
+    with tracer.span("tree.leaf", cat="tree",
+                     args={"level": cfg.max_depth}):
+        leaf_hist = leaf_fn(g, h, sample_mask, assign, cfg.num_leaves)
+        weights = split_mod.leaf_weights(leaf_hist, cfg)    # (T, L[, K])
+        trees = TreeArrays(
+            feature=torch.cat(features, dim=1),
+            threshold=torch.cat(thresholds, dim=1),
+            gain=torch.cat(gains, dim=1),
+            leaf_weight=weights,
+        )
     return trees, assign
 
 

@@ -51,6 +51,11 @@ from repro_torch.core import histogram as hist_mod
 from repro_torch.core import split as split_mod
 from repro_torch.core.types import TreeConfig
 from repro_torch.federation import mesh_roles
+from repro_torch.obs import trace as trace_mod
+
+#: the span of every exchange: the code that makes, meters and gathers a
+#: message, not the parties' own compute
+EXCHANGE = "federation.exchange"
 
 
 def plain_gather(parts, axis: int) -> torch.Tensor:
@@ -89,9 +94,10 @@ def federated_round_histogram_fn(
     def fn(blocks, g, h, weight, assign, num_nodes, num_bins, **kw):
         local = _local_histograms(base_fn, blocks, g, h, weight, assign,
                                   num_nodes, num_bins, kw)
-        if meter is not None:
-            meter.record("histograms", local[0])
-        return gather(local, 2)
+        with trace_mod.global_tracer().span(EXCHANGE, cat="federation"):
+            if meter is not None:
+                meter.record("histograms", local[0])
+            return gather(local, 2)
 
     return fn
 
@@ -141,10 +147,11 @@ def centralized_round_choose_fn(cfg: TreeConfig, num_parties: int,
     per tree)."""
 
     def fn(hist_global, feature_mask):
-        parts = feature_mask.chunk(num_parties, dim=1)
-        if meter is not None:
-            meter.record("feature_mask", parts[0])
-        fmask = plain_gather(parts, 1)
+        with trace_mod.global_tracer().span(EXCHANGE, cat="federation"):
+            parts = feature_mask.chunk(num_parties, dim=1)
+            if meter is not None:
+                meter.record("feature_mask", parts[0])
+            fmask = plain_gather(parts, 1)
         return split_mod.choose_splits_round(hist_global, fmask, cfg)
 
     return fn
@@ -186,25 +193,28 @@ def federated_round_route_fn(meter=None):
         f_global = torch.gather(decision.feature, 1, node)     # (T, n)
         thr = torch.gather(decision.threshold, 1, node)
         shards = mesh_roles.shard_rows(blocks, assign.shape[1])
-        shard_maps = []
+        shard_bits = []
         for shard, rows in shards:
             fg, tr = f_global[:, rows], thr[:, rows]
-            maps = []
+            bits = []
             for p, block in enumerate(shard):
                 d_party = block.shape[1]
                 f_local = fg - p * d_party
                 owned = (f_local >= 0) & (f_local < d_party) & (fg >= 0)
                 col = f_local.clamp(0, d_party - 1).long()
                 fv = torch.gather(block, 1, col.T).T            # (T, m)
-                maps.append(pack_bits(owned & (fv > tr)))
-            shard_maps.append(maps)
-        if meter is not None:
-            meter.record("id_partition",
-                         torch.stack([maps[0] for maps in shard_maps]))
-        go_right = [
-            unpack_bits(torch.sum(torch.stack(maps), dim=0,
-                                  dtype=torch.uint8), shard[0].shape[0])
-            for (shard, _), maps in zip(shards, shard_maps)]
+                bits.append(owned & (fv > tr))
+            shard_bits.append(bits)
+        with trace_mod.global_tracer().span(EXCHANGE, cat="federation"):
+            shard_maps = [[pack_bits(b) for b in bits]
+                          for bits in shard_bits]
+            if meter is not None:
+                meter.record("id_partition",
+                             torch.stack([maps[0] for maps in shard_maps]))
+            go_right = [
+                unpack_bits(torch.sum(torch.stack(maps), dim=0,
+                                      dtype=torch.uint8), shard[0].shape[0])
+                for (shard, _), maps in zip(shards, shard_maps)]
         return assign * 2 + (go_right[0] if len(go_right) == 1
                              else torch.cat(go_right, dim=1))
 

@@ -31,6 +31,7 @@ from repro_torch.core import prng
 from repro_torch.core import split as split_mod
 from repro_torch.core.types import TreeConfig
 from repro_torch.federation import aggregator
+from repro_torch.obs import trace as trace_mod
 
 #: histogram stat channels on the wire under quantization for a K = 1
 #: objective: (sum_g, sum_h); K-channel objectives ship 2K (everything but
@@ -386,11 +387,13 @@ def quantized_round_histogram_fn(
                                       reciprocal=True)
             qs.append(q)
             scales.append(scale)
-        if meter is not None:
-            meter.record("histograms", qs[0])
-            meter.record("histograms", scales[0])
-        deq = dequantize_stats(gather(qs, 2),
-                               aggregator.plain_gather(scales, 2))
+        with trace_mod.global_tracer().span(aggregator.EXCHANGE,
+                                            cat="federation"):
+            if meter is not None:
+                meter.record("histograms", qs[0])
+                meter.record("histograms", scales[0])
+            deq = dequantize_stats(gather(qs, 2),
+                                   aggregator.plain_gather(scales, 2))
         count = torch.zeros(deq.shape[:-1] + (1,), dtype=deq.dtype,
                             device=deq.device)
         return torch.cat([deq, count], dim=-1)
@@ -438,11 +441,13 @@ def topk_round_choose_fn(
             feats_all.append((top_idx // num_bins).to(torch.int32)
                              + party * d_party)
             thrs_all.append((top_idx % num_bins).to(torch.int32))
-        if meter is not None:
-            for arr in (gains_all[0], feats_all[0], thrs_all[0]):
-                meter.record("split_candidates", arr)
-        g2 = gather(gains_all, -1)                 # (T, nodes, P * k_eff)
-        f2, t2 = gather(feats_all, -1), gather(thrs_all, -1)
+        with trace_mod.global_tracer().span(aggregator.EXCHANGE,
+                                            cat="federation"):
+            if meter is not None:
+                for arr in (gains_all[0], feats_all[0], thrs_all[0]):
+                    meter.record("split_candidates", arr)
+            g2 = gather(gains_all, -1)             # (T, nodes, P * k_eff)
+            f2, t2 = gather(feats_all, -1), gather(thrs_all, -1)
         best = torch.argmax(g2, dim=-1, keepdim=True)       # first maximum
         best_gain = torch.gather(g2, -1, best)[..., 0]
         has_split = best_gain > 0.0

@@ -49,6 +49,7 @@ from repro_torch.core.types import TreeConfig
 from repro_torch.federation import aggregator, compress, mesh_roles
 from repro_torch.federation import async_exchange as async_mod
 from repro_torch.federation import chaos as chaos_mod
+from repro_torch.obs import trace as trace_mod
 
 
 def make_vfl_backend(
@@ -230,7 +231,10 @@ def make_vfl_backend(
     def forest_builder_per_tree(binned, g, h, sample_mask, feature_mask,
                                 _cfg=None, root_delta_rows=0):
         n = binned.shape[0]
-        blocks, g, h, sample_mask = _blocks(binned, g, h, sample_mask, _cfg)
+        with trace_mod.global_tracer().span(aggregator.EXCHANGE,
+                                            cat="federation"):
+            blocks, g, h, sample_mask = _blocks(binned, g, h, sample_mask,
+                                                _cfg)
         trees, per_tree = forest_mod.build_forest_per_tree(
             blocks, g, h, sample_mask, feature_mask, cfg, backend=inner,
             root_delta_rows=root_delta_rows)

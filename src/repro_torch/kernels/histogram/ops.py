@@ -25,7 +25,9 @@ Every histogram launch runs the sort kernel first, so each also adds one
 to ``sort_slots.launches``.  The wrappers allocate the scratch with
 ``torch.empty`` — the sort's counts, ``order`` (T, d, n) and ``starts``
 (T, d, nodes * B + 1), int32, and the rows' stats packed for the walk;
-the kernels allocate nothing.
+the kernels allocate nothing.  Each of the three also reports one
+``kernel.histogram`` span to the process tracer, at the launch counter's
+boundary: the checks, the scratch and the launch (or the plain version).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import torch
 from repro_torch.core.histogram import root_histogram_via_delta, stack_stats
 from repro_torch.kernels import build
 from repro_torch.kernels.histogram import ref
+from repro_torch.obs import trace as trace_mod
 
 SOURCE = Path(__file__).with_name("csrc") / "histogram.cu"
 
@@ -230,10 +233,11 @@ def compute_round_histogram_cuda_fused(binned, g, h, weight, assign,
         return root_histogram_via_delta(
             binned, g, h, weight, num_bins, root_delta_rows,
             base_tree_fn=compute_histogram_cuda_fused)
-    out, launched = histogram_round(
-        _i32(binned), _i32(assign), _channels(g), _channels(h), _f32(weight),
-        num_nodes, num_bins, child)
-    _count(compute_round_histogram_cuda_fused, launched)
+    with trace_mod.global_tracer().span("kernel.histogram", cat="kernel"):
+        out, launched = histogram_round(
+            _i32(binned), _i32(assign), _channels(g), _channels(h),
+            _f32(weight), num_nodes, num_bins, child)
+        _count(compute_round_histogram_cuda_fused, launched)
     return out
 
 
@@ -251,10 +255,11 @@ def compute_histogram_cuda_fused(binned, g, h, weight, assign,
                                  child: bool = False) -> torch.Tensor:
     """``core.histogram.compute_histogram`` contract through the T = 1
     entry point: weight / assign (n,) -> (num_nodes, d, B, 2K+1)."""
-    out, launched = histogram_round(
-        _i32(binned), _i32(assign)[None], _channels(g), _channels(h),
-        _f32(weight)[None], num_nodes, num_bins, child)
-    _count(compute_histogram_cuda_fused, launched)
+    with trace_mod.global_tracer().span("kernel.histogram", cat="kernel"):
+        out, launched = histogram_round(
+            _i32(binned), _i32(assign)[None], _channels(g), _channels(h),
+            _f32(weight)[None], num_nodes, num_bins, child)
+        _count(compute_histogram_cuda_fused, launched)
     return out[0]
 
 
@@ -270,11 +275,12 @@ def compute_histogram_cuda(binned, g, h, weight, assign, num_nodes: int,
                            num_bins: int) -> torch.Tensor:
     """``core.histogram.compute_histogram`` contract through the staged
     entry point: ids and stats staged in PyTorch, then one launch."""
-    ids = _i32(assign)[:, None] * num_bins + _i32(binned)
-    data = stack_stats(_f32(g), _f32(h), _f32(weight)).contiguous()
-    out, launched = histogram_staged(ids.contiguous(), data, num_nodes,
-                                     num_bins)
-    _count(compute_histogram_cuda, launched)
+    with trace_mod.global_tracer().span("kernel.histogram", cat="kernel"):
+        ids = _i32(assign)[:, None] * num_bins + _i32(binned)
+        data = stack_stats(_f32(g), _f32(h), _f32(weight)).contiguous()
+        out, launched = histogram_staged(ids.contiguous(), data, num_nodes,
+                                         num_bins)
+        _count(compute_histogram_cuda, launched)
     return out
 
 

@@ -8,8 +8,10 @@ or by binning followed by the binned kernel (``--impl cuda``).  A
 ``ModelSlot`` validates a candidate checkpoint before it swaps it in
 between microbatches; rows with an infinite feature are rejected (scored
 NaN, never fed to the ensemble) and clean full batches go to the device
-without a host-side staging copy.  Latency is taken after
-``torch.cuda.synchronize()``, the counterpart of ``block_until_ready``.
+without a host-side staging copy.  A batch's latency runs from its
+admission until its scores are back in host memory (the kernel awaited
+with ``torch.cuda.synchronize()``, the counterpart of
+``block_until_ready``): what the caller waits.
 
     # serve a JAX-trained checkpoint on the card
     PYTHONPATH=src python -m repro_torch.launch.serve_fedgbf \
@@ -55,6 +57,7 @@ from repro_torch.core.types import (
 from repro_torch.data import synthetic
 from repro_torch.device import resolve
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as trace_mod
 
 
 def _score_batch(packed, x: torch.Tensor, impl: str) -> torch.Tensor:
@@ -71,7 +74,8 @@ def _synchronize(device: torch.device) -> None:
 
 class StreamMetrics:
     """Serving instruments for one scoring stream (bounded memory): the
-    JAX package's series, names and semantics unchanged.
+    JAX package's series and names; the batch latency also counts the
+    admission and the copy back.
 
     Latency lives only in log-bucketed histograms (overall and per rung);
     occupancy accumulates per model segment and resets at each hot-swap.
@@ -82,7 +86,8 @@ class StreamMetrics:
         self.registry = r
         self.latency = r.histogram(
             "fedgbf_serve_batch_latency_seconds",
-            "Per-microbatch scoring latency (bin + traverse + combine).",
+            "Per-microbatch latency as the caller waits: admission, copy "
+            "in, bin + traverse + combine, copy back.",
             lo=1e-6, hi=60.0,
         )
         self.rows = r.counter("fedgbf_serve_rows_total",
@@ -302,43 +307,55 @@ def serve_stream(
     NaN and count on ``fedgbf_serve_rows_rejected_total``) or to pad to
     the admitted capacity.  NaN features are not rejected: they route
     left, as training's ``NAN_BIN`` does.
+
+    A batch's latency runs from its admission until its scores are in
+    ``out``, and each batch reports four phases to the process tracer
+    (``obs.trace.global_tracer``), the batch index in ``args``:
+    ``serve.admit``, ``serve.copy_in``, ``serve.score`` (the kernel and
+    the wait for it) and ``serve.copy_out``.
     """
     n = x.shape[0]
     out = None  # allocated after the first batch: (n,) or (n, K) scores
     if metrics is None:
         metrics = StreamMetrics(ladder.max_size)
+    tracer = trace_mod.global_tracer()
     pos = 0
     batch_idx = 0
     while pos < n:
         if swap_plan and batch_idx in swap_plan:
             slot.try_reload(swap_plan[batch_idx])
         device = slot.packed.device
-        queued = n - pos
-        cap = ladder.pick(queued, p99_budget_s, metrics)
-        real = min(cap, queued)
-        view = x[pos:pos + real]
-        bad = np.isinf(view).any(axis=1)
-        nbad = int(bad.sum())
-        if nbad or real < cap:
-            batch = np.zeros((cap,) + x.shape[1:], x.dtype)
-            batch[:real] = view
-            if nbad:
-                batch[:real][bad] = 0.0
-            metrics.rows_rejected.inc(nbad)
-        else:
-            batch = view
+        phase = {"batch": batch_idx}
         t0 = time.perf_counter()
-        xb = _as_tensor(batch).to(device=device, dtype=torch.float32)
-        scores = _score_batch(slot.packed, xb.contiguous(), slot.impl)
-        _synchronize(device)
+        with tracer.span("serve.admit", cat="serve", args=phase):
+            queued = n - pos
+            cap = ladder.pick(queued, p99_budget_s, metrics)
+            real = min(cap, queued)
+            view = x[pos:pos + real]
+            bad = np.isinf(view).any(axis=1)
+            nbad = int(bad.sum())
+            if nbad or real < cap:
+                batch = np.zeros((cap,) + x.shape[1:], x.dtype)
+                batch[:real] = view
+                if nbad:
+                    batch[:real][bad] = 0.0
+                metrics.rows_rejected.inc(nbad)
+            else:
+                batch = view
+        with tracer.span("serve.copy_in", cat="serve", args=phase):
+            xb = _as_tensor(batch).to(device=device, dtype=torch.float32)
+        with tracer.span("serve.score", cat="serve", args=phase):
+            scores = _score_batch(slot.packed, xb.contiguous(), slot.impl)
+            _synchronize(device)
+        with tracer.span("serve.copy_out", cat="serve", args=phase):
+            if out is None:
+                out = np.empty((n,) + tuple(scores.shape[1:]), np.float32)
+            block = scores[:real].cpu().numpy()
+            if nbad:
+                block = block.copy()
+                block[bad] = np.nan
+            out[pos:pos + real] = block
         metrics.observe_batch(time.perf_counter() - t0, real, capacity=cap)
-        if out is None:
-            out = np.empty((n,) + tuple(scores.shape[1:]), np.float32)
-        block = scores[:real].cpu().numpy()
-        if nbad:
-            block = block.copy()
-            block[bad] = np.nan
-        out[pos:pos + real] = block
         pos += real
         batch_idx += 1
     return out, metrics

@@ -1,7 +1,8 @@
 """Host-side span tracing with a zero-overhead disabled path (DESIGN.md §12).
 
-A copy of the JAX package's ``repro/obs/trace.py``:
-the port imports no module of that package, so it keeps its own.
+A copy of the JAX package's ``repro/obs/trace.py`` (the port imports no
+module of that package, so it keeps its own), with ``use`` and the
+profiler marks below added.
 
 A ``Tracer`` records closed ``Span`` intervals (absolute ``perf_counter``
 seconds, so every producer in the process shares one clock) plus counter
@@ -26,12 +27,30 @@ code pays a method call and nothing else when tracing is off.
 
 ``set_global_tracer`` / ``global_tracer`` is the process-wide seam for code
 that cannot thread a tracer argument (checkpoint I/O, library internals):
-default ``NULL_TRACER``, flipped by ``train_fedgbf --trace`` and friends.
+default ``NULL_TRACER``, flipped by ``train_fedgbf --trace`` and friends;
+``use(tracer)`` installs one for a block (``train_fedgbf`` runs its body
+under the caller's tracer, so the tree build, the federation and the kernel
+wrappers report to it).
+
+On the profiler's clock: while a ``torch.profiler`` runs, every live span
+of either tracer also opens ``record_function("span:" + name)``, so the
+program's phases appear in the profiler's trace beside the ops and kernels
+they issue, and an idle gap of the device can be named by the phase open on
+the host.  The ``span:`` prefix keeps the marks apart from torch's own ops
+(their device-side annotations are not device work).  The test is one
+module attribute read (``torch.autograd.profiler._is_profiler_enabled``);
+with no profiler running the disabled path stays allocation-free.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
+
+from torch.autograd import profiler as _profiler
+
+#: the namespace of the program's marks in a profiler's trace
+SPAN_PREFIX = "span:"
 
 
 class Span:
@@ -59,9 +78,11 @@ class Span:
 
 
 class _ActiveSpan:
-    """Live span context manager: times the block, appends on exit."""
+    """Live span context manager: times the block, appends on exit, and
+    marks it in the profiler's trace while one runs."""
 
-    __slots__ = ("_tracer", "_name", "_cat", "_args", "_t0", "_depth")
+    __slots__ = ("_tracer", "_name", "_cat", "_args", "_t0", "_depth",
+                 "_mark")
 
     def __init__(self, tracer, name, cat, args):
         self._tracer = tracer
@@ -70,6 +91,10 @@ class _ActiveSpan:
         self._args = args
 
     def __enter__(self):
+        self._mark = None
+        if _profiler._is_profiler_enabled:
+            self._mark = _profiler.record_function(SPAN_PREFIX + self._name)
+            self._mark.__enter__()
         self._depth = self._tracer._depth
         self._tracer._depth = self._depth + 1
         self._t0 = time.perf_counter()
@@ -77,6 +102,8 @@ class _ActiveSpan:
 
     def __exit__(self, exc_type, exc, tb):
         t1 = time.perf_counter()
+        if self._mark is not None:
+            self._mark.__exit__(exc_type, exc, tb)
         self._tracer._depth = self._depth
         self._tracer.spans.append(
             Span(self._name, self._cat, self._t0, t1, "host", self._args,
@@ -102,11 +129,14 @@ _NULL_SPAN = _NullSpan()
 
 class NullTracer:
     """Disabled tracer: every call is a no-op, ``span()`` allocates nothing
-    (returns the module-level ``_NULL_SPAN`` singleton)."""
+    (returns the module-level ``_NULL_SPAN`` singleton) unless a profiler
+    runs, when it returns the span's mark in the profiler's trace."""
 
     enabled = False
 
     def span(self, name, cat="host", args=None):
+        if _profiler._is_profiler_enabled:
+            return _profiler.record_function(SPAN_PREFIX + name)
         return _NULL_SPAN
 
     def add_span(self, name, t0, t1, cat="host", track="host", args=None):
@@ -158,3 +188,15 @@ def set_global_tracer(tracer) -> None:
 def global_tracer():
     """The process-wide tracer; ``NULL_TRACER`` unless a launcher set one."""
     return _GLOBAL_TRACER
+
+
+@contextlib.contextmanager
+def use(tracer):
+    """Install ``tracer`` as the process-wide tracer for the block, and
+    restore the previous one on leaving it (also on an exception)."""
+    previous = _GLOBAL_TRACER
+    set_global_tracer(tracer)
+    try:
+        yield tracer
+    finally:
+        set_global_tracer(previous)

@@ -112,21 +112,6 @@ def test_root_histogram_via_delta(base):
                                atol=TOL)
 
 
-def test_pass_meter():
-    binned, g, h, w, a = _inputs(6, 300, 4, 16, 2, n_trees=2)
-    t_hist.PASS_METER = []
-    try:
-        t_hist.compute_round_histogram(*_t(binned, g, h, w, a), 2, 16)
-        t_hist.root_histogram_via_delta(*_t(binned, g, h, (w > 0).astype(
-            np.float32)), 16, 64)
-        assert t_hist.PASS_METER == [
-            {"tag": "round", "rows": 300, "trees": 2},
-            {"tag": "round", "rows": 300, "trees": 1},
-            {"tag": "root_delta", "rows": 64, "trees": 2}]
-    finally:
-        t_hist.PASS_METER = None
-
-
 @pytest.mark.parametrize("k", [1, 3])
 @pytest.mark.parametrize("child", [False, True], ids=["direct", "child"])
 @pytest.mark.parametrize("oor", [False, True], ids=["in-range", "oor"])
