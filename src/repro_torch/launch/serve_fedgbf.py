@@ -306,7 +306,11 @@ def serve_stream(
     transfer; a copy is made only to zero inf rows (their scores return
     NaN and count on ``fedgbf_serve_rows_rejected_total``) or to pad to
     the admitted capacity.  NaN features are not rejected: they route
-    left, as training's ``NAN_BIN`` does.
+    left, as training's ``NAN_BIN`` does.  Admission looks for an inf in
+    one flat pass over the batch's values (its largest and smallest); only
+    a batch that holds one forms the per-row mask, and records its
+    rejected rows on the process tracer's ``serve.admit.inf_rows``
+    counter.
 
     A batch's latency runs from its admission until its scores are in
     ``out``, and each batch reports four phases to the process tracer
@@ -332,8 +336,14 @@ def serve_stream(
             cap = ladder.pick(queued, p99_budget_s, metrics)
             real = min(cap, queued)
             view = x[pos:pos + real]
-            bad = np.isinf(view).any(axis=1)
-            nbad = int(bad.sum())
+            nbad = 0
+            # one flat pass each way, with no temporary; fmax and fmin skip
+            # NaN, which routes left and is not rejected
+            if (np.fmax.reduce(view, axis=None) == np.inf
+                    or np.fmin.reduce(view, axis=None) == -np.inf):
+                bad = np.isinf(view).any(axis=1)
+                nbad = int(bad.sum())
+                tracer.counter("serve.admit.inf_rows", {"rows": nbad})
             if nbad or real < cap:
                 batch = np.zeros((cap,) + x.shape[1:], x.dtype)
                 batch[:real] = view

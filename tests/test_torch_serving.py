@@ -13,6 +13,7 @@ from repro.launch import serve_fedgbf as j_serve
 from repro_torch.checkpoint import io as t_io
 from repro_torch.data import synthetic as t_synthetic
 from repro_torch.launch import serve_fedgbf as t_serve
+from repro_torch.obs import trace
 
 CKPT = str(Path(__file__).resolve().parents[1] / "src" / "repro_torch"
            / "testdata" / "dynamic_fedgbf_r20")
@@ -164,6 +165,68 @@ def test_scores_match_jax_service(model_a, x_test):
                 if line.startswith("# TYPE")}
     assert families == {line.split()[2] for line in jsm.render().splitlines()
                         if line.startswith("# TYPE")}
+
+
+# (row, column, value) written into 600 rows served in batches of 256:
+# two full batches, then 88 rows padded to a rung
+INF_CASES = {
+    "clean": [],
+    "pos_inf_mid_batch": [(100, 3, np.inf)],
+    "neg_inf_last_row_full_batch": [(511, 22, -np.inf)],
+    "inf_in_padded_batch": [(550, 2, np.inf)],
+    "two_infs_one_row": [(300, 0, np.inf), (300, 5, -np.inf)],
+    "all_nan_row": [(400, slice(None), np.nan)],
+    "inf_beside_nan_row": [(400, slice(None), np.nan), (410, 3, np.inf)],
+}
+
+
+@pytest.mark.parametrize("entry", ["score_stream", "serve_stream"])
+@pytest.mark.parametrize("case", sorted(INF_CASES))
+def test_inf_rows_rejected_as_jax_service(model_a, x_test, case, entry):
+    """Only rows holding an inf score NaN and count as rejected, whether the
+    batch is full or padded, with the JAX service's scores elsewhere; the
+    caller's array is never written."""
+    x = np.array(x_test[:600], np.float32)
+    for row, col, value in INF_CASES[case]:
+        x[row, col] = value
+    inf_rows = sorted({row for row, _, value in INF_CASES[case]
+                       if np.isinf(value)})
+    x.setflags(write=False)
+    before = x.copy()
+    if entry == "score_stream":
+        got, sm = t_serve.score_stream(model_a, x, batch_size=256,
+                                       impl="fused-cuda")
+    else:
+        slot = t_serve.ModelSlot(model_a, "fused-cuda")
+        got, sm = t_serve.serve_stream(
+            slot, x, ladder=t_serve.BatchLadder([128, 256]))
+        assert int(sm.padded_rows.value) == 40
+    want, jsm = j_serve.score_stream(j_io.load_ensemble(CKPT), x,
+                                     batch_size=256, impl="fused")
+    np.testing.assert_array_equal(x, before)
+    assert np.isnan(got[inf_rows]).all()
+    assert np.isfinite(np.delete(got, inf_rows)).all()
+    assert (int(sm.rows_rejected.value) == int(jsm.rows_rejected.value)
+            == len(inf_rows))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_inf_counter_samples_only_batches_with_inf(model_a, x_test):
+    """``serve.admit.inf_rows`` is sampled once a batch that holds an inf,
+    with its rejected rows, and never on a clean stream."""
+    x = np.array(x_test[:384], np.float32)
+    with trace.use(trace.Tracer()) as tracer:
+        t_serve.score_stream(model_a, x, batch_size=128, impl="fused-cuda")
+    assert not [c for c in tracer.counters if c[0] == "serve.admit.inf_rows"]
+    x[5, 1] = np.inf
+    x[9, 0] = -np.inf
+    x[300, 2] = x[300, 7] = np.inf
+    with trace.use(trace.Tracer()) as tracer:
+        _, sm = t_serve.score_stream(model_a, x, batch_size=128,
+                                     impl="fused-cuda")
+    assert [values for name, _, values in tracer.counters
+            if name == "serve.admit.inf_rows"] == [{"rows": 2}, {"rows": 1}]
+    assert int(sm.rows_rejected.value) == 3
 
 
 def test_cli_serves_on_cpu_and_refuses_missing_cuda(tmp_path, capsys,
