@@ -83,9 +83,9 @@ package.  Phases, each of which raises on failure (exit code 1):
       trained from the stored margins and the same key: the packed
       ensemble and final margins equal 4's.
    d. Federated: ``vfl-histogram`` with 4 parties as column blocks (the
-      23 features padded to 24, masks from ``PRNGKey(0)``): 240 histogram
-      launches (one a party a level), trees, leaves, final margins and
-      the test rows' ``fused-cuda`` scores ``torch.equal`` to a
+      23 features padded to 24, masks from ``PRNGKey(0)``): 60 histogram
+      launches (one a level for the 4 parties), trees, leaves, final
+      margins and the test rows' ``fused-cuda`` scores ``torch.equal`` to a
       ``local-cuda`` run on the same columns and masks, the wire-byte
       ledger reconciled (delta 0 on every phase) and the run's own meter
       equal to it, the round wall beside ``local-cuda``'s; ``vfl-argmax``
@@ -99,7 +99,7 @@ package.  Phases, each of which raises on failure (exit code 1):
       under a party-dropout mask ``torch.equal`` to ``local-cuda`` under
       it, no split on a degraded column; the gradient-less fallback (4
       party fits, 240 launches, ledger exact); ``vfl-histogram-sharded``
-      over 2 row shards (480 launches), rounds 1-5 ``torch.equal`` to the
+      over 2 row shards (60 launches), rounds 1-5 ``torch.equal`` to the
       same run on CPU tensors; the port's selftest lattice on the card.
       Each model scores the test rows once through ``fused-cuda``.
 5. The other two entry points' paths: round 1 rebuilt with per-tree
@@ -151,7 +151,7 @@ package.  Phases, each of which raises on failure (exit code 1):
    c. ``launch.dryrun_fedgbf``'s sweep on the card: the paper's forest
       round (150,000 rows, 16 parties, 16 or 32 row shards, 8 on the
       explicit grid): every meter reconciled (delta 0), the trees equal
-      ``local-cuda``'s, parties x shards histogram launches a level, async
+      ``local-cuda``'s, one histogram launch a level, async
       over sync exactly 1, the subtraction and compaction cuts, each wall;
    d. the four examples' ``main(device="cuda")`` at their defaults.
 9. The kernels line, then the card line, then the result line.
@@ -1346,18 +1346,18 @@ def phase_vfl_train(device, card) -> dict:
     ``default_credit_card`` padded to 24 features, masks drawn from
     ``PRNGKey(0)`` for 24 columns:
 
-    * ``vfl-histogram``: exactly 4 x 60 = 240 round-histogram launches (one
-      per party per level, each on its 21000 x 6 block); trees, leaves and
-      final margins ``torch.equal`` to a ``local-cuda`` run on the same
-      padded columns and masks; the wire-byte ledger (the dry probe)
-      reconciled with the wire model on every phase, delta 0, and the
-      run's own meter equal to the ledger's measured bytes; the test rows
-      scored once through ``fused-cuda``, equal to the ``local-cuda``
-      model's scores; the round wall beside ``local-cuda``'s;
-    * ``vfl-argmax``: 240 launches, trees equal to ``local-cuda``;
+    * ``vfl-histogram``: exactly 60 round-histogram launches (one a level
+      on the 21000 x 24 table, each party's histogram its column slice);
+      trees, leaves and final margins ``torch.equal`` to a ``local-cuda``
+      run on the same padded columns and masks; the wire-byte ledger (the
+      dry probe) reconciled with the wire model on every phase, delta 0,
+      and the run's own meter equal to the ledger's measured bytes; the
+      test rows scored once through ``fused-cuda``, equal to the
+      ``local-cuda`` model's scores; the round wall beside
+      ``local-cuda``'s;
+    * ``vfl-argmax``: 60 launches, trees equal to ``local-cuda``;
     * ``vfl-histogram-q8`` with the JAX rounding keys: trains (finite
-      margins),
-      240 launches, the ledger reconciled, its histogram bytes (int8
+      margins), 60 launches, the ledger reconciled, its histogram bytes (int8
       payload + scales) the wire model's and under the raw run's;
     * one party's launch (21000 x 6, the 5 trees of round 1, level 0)
       timed beside a full-width one (21000 x 24) and the plain version."""
@@ -1376,7 +1376,7 @@ def phase_vfl_train(device, card) -> dict:
     cfg = boosting.dynamic_fedgbf_config(rounds=REF_ROUNDS)
     tree = cfg.tree
     masks = forest.draw_step_masks(cfg, n, d, prng.PRNGKey(0, device))
-    want_launches = VFL_PARTIES * REF_HIST_LAUNCHES
+    want_launches = REF_HIST_LAUNCHES       # one a level for all parties
 
     def train(backend):
         ops.reset_launches()
@@ -1395,7 +1395,7 @@ def phase_vfl_train(device, card) -> dict:
     for kernel in ("histogram_round", "histogram_sort"):
         check(launches[kernel] == want_launches,
               f"vfl-histogram: {launches[kernel]} {kernel} launches == "
-              f"{VFL_PARTIES} parties x {REF_HIST_LAUNCHES}")
+              f"{REF_HIST_LAUNCHES}, one a level for {VFL_PARTIES} parties")
     check(_same_trees(model, local),
           "vfl-histogram trees, leaves == local-cuda's on the padded data")
     check(np.array_equal(history.final_margin, local_h.final_margin),
@@ -1566,8 +1566,8 @@ def phase_vfl_runtime(device, card, vfl) -> dict:
       degraded in some round): 4 party fits on ``local-cuda``, 4 x 60
       launches; the margin/rate ledger equal to ``wire_cost``, the rate
       fit no worse than the concatenation;
-    * the data axis: ``vfl-histogram-sharded`` over 2 row shards, 8
-      launches a level; rounds 1-5 ``torch.equal`` to the same backend on
+    * the data axis: ``vfl-histogram-sharded`` over 2 row shards, one
+      launch a level; rounds 1-5 ``torch.equal`` to the same backend on
       CPU tensors (the plain versions); the trees equal to 4d's unsharded
       ones and the margins' max difference printed;
     * the port's selftest lattice with ``--device cuda``, every check
@@ -1593,7 +1593,7 @@ def phase_vfl_runtime(device, card, vfl) -> dict:
     cfg = boosting.dynamic_fedgbf_config(rounds=REF_ROUNDS)
     tree, masks = cfg.tree, vfl["masks"]
     x_t = torch.from_numpy(np.ascontiguousarray(x_test)).to(device)
-    want_fed = VFL_PARTIES * REF_HIST_LAUNCHES
+    want_fed = REF_HIST_LAUNCHES            # one a level for all parties
     base_wall = _walls_ms(vfl["history"])
     launches = {}
 
@@ -1750,18 +1750,17 @@ def phase_vfl_runtime(device, card, vfl) -> dict:
           f"fits and the 300-step rate fit; loss {info['loss_before']:.6f} "
           f"-> {info['loss_after']:.6f}; ledger {got} == wire_cost")
 
-    # the data axis: 2 row shards, 8 launches a level
+    # the data axis: 2 row shards, still one launch a level
     def sharded():
         return backend_mod.get_backend(
             "vfl-histogram-sharded", tree=tree, num_parties=VFL_PARTIES,
             data_shards=DATA_SHARDS)
 
     model, hist = train("vfl-histogram-sharded", sharded())
-    want_sh = DATA_SHARDS * want_fed
-    check(launches["vfl-histogram-sharded"] == want_sh,
+    check(launches["vfl-histogram-sharded"] == want_fed,
           f"sharded: {launches['vfl-histogram-sharded']} launches == "
-          f"{DATA_SHARDS} shards x {VFL_PARTIES} parties x "
-          f"{REF_HIST_LAUNCHES}")
+          f"{REF_HIST_LAUNCHES}, one a level for {DATA_SHARDS} shards x "
+          f"{VFL_PARTIES} parties")
     win, win_h = train("sharded window", sharded(), stop_round=SHARD_WINDOW)
     cpu, cpu_h = train("sharded window, CPU", sharded(), dev="cpu",
                        stop_round=SHARD_WINDOW)
@@ -2382,7 +2381,7 @@ def phase_dryrun_fedgbf(device, card) -> dict:
     blocks; ``sweep`` raises unless every run's meter reconciles with the
     wire model (delta 0), the histogram, async and argmax trees equal
     ``local-cuda``'s, and each run launched the histogram kernel (and its
-    sort) parties x shards times a level.  Returns the summed launches,
+    sort) once a level.  Returns the summed launches,
     the ``local-cuda`` oracle builds' included."""
     from repro_torch.launch import dryrun_fedgbf
 
@@ -2774,13 +2773,13 @@ def main() -> int:
         "histogram_round": "train_fedgbf local-cuda, 20 rounds: uniform "
                            "from PRNGKey(0) and from the committed masks, "
                            "GOSS, and uniform killed after 8 and resumed; "
-                           "vfl-histogram, 4 parties, one launch a party "
-                           "a level; its chaos, party-dropout, "
-                           "gradient-less and 2-shard runs, one launch a "
-                           "party (and shard) a level; the production-"
-                           "grid forest rounds, one launch a party and "
-                           "shard a level, and their local-cuda oracle "
-                           "builds; the examples' training",
+                           "vfl-histogram, 4 parties, one launch a level; "
+                           "its chaos, party-dropout and 2-shard runs, one "
+                           "launch a level; gradient-less, one launch a "
+                           "party a level; the production-grid forest "
+                           "rounds, one launch a level, and their "
+                           "local-cuda oracle builds; the examples' "
+                           "training",
         "histogram_tree": "round 1, per-tree providers",
         "histogram_staged": "round 1, histogram_dispatch('cuda')",
         "histogram_sort": "the first step of every histogram_round launch",

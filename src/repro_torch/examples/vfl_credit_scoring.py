@@ -4,8 +4,8 @@
 Two parties (bank = active, with the labels; fintech = passive) hold
 disjoint feature columns of the same customers.  In the port the parties
 are column blocks of one process on one card (``federation/mesh_roles.py``),
-so no forced devices are needed: each party's histogram is one launch of
-the histogram kernel on its block.  The message ledger reconciles the bytes
+so no forced devices are needed: one launch of the histogram kernel a
+level holds every party's histogram, each its column slice.  The message ledger reconciles the bytes
 every exchange ships against the predicted wire model (and prices the
 paper-world Paillier protocol alongside); the secure-aggregation demo shows
 the masking algebra on a broadcast; the quantized transport ships ~5x

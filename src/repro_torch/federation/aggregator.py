@@ -2,9 +2,11 @@
 ``repro/federation/aggregator.py``.
 
 The parties are column blocks of one process (``mesh_roles.PartyBlocks``),
-so each provider loops over the blocks where the JAX package's runs once
-per party inside ``shard_map``, and each collective is a tensor operation
-over the party axis behind one seam that meters its payload:
+so each provider works over the blocks where the JAX package's runs once
+per party inside ``shard_map`` (the histograms in one launch over the
+blocks' table, the routing block by block), and each collective is a
+tensor operation over the party axis behind one seam that meters its
+payload:
 
 * ``all_gather(tiled)`` over the party axis is ``plain_gather``, a
   ``torch.cat`` of the parties' payloads along the feature axis;
@@ -34,11 +36,13 @@ derives the right siblings after the merge (``tree.build_round``).
 
 The data axis (``-sharded``): the providers also take
 ``mesh_roles.ShardBlocks``, every (shard, party) block of the padded rows.
-Each (party, shard) histogram is its own ``base_fn`` call (one kernel
-launch) on its row block, and the data axis's ``psum`` is the sum of the
-shard partials in shard order 0..S-1 (``mesh_roles.shard_sum``), before
-the party exchange; leaf statistics and liveness counts are summed the
-same way, and the routing maps are one bitmap per shard.
+The histograms of every (party, shard) block come from ONE ``base_fn``
+call a level (one kernel launch on the card) over the whole table, with
+each row's shard folded into its node id (``_local_histograms``); the
+data axis's ``psum`` is the sum of the shard partials in shard order
+0..S-1 (``mesh_roles.shard_sum``), before the party exchange; leaf
+statistics and liveness counts are summed the same way, and the routing
+maps are one bitmap per shard.
 """
 
 from __future__ import annotations
@@ -65,35 +69,72 @@ def plain_gather(parts, axis: int) -> torch.Tensor:
 
 
 def _local_histograms(base_fn, blocks, g, h, weight, assign, num_nodes,
-                      num_bins, kw) -> list:
-    """Each party's histogram of its own block: one ``base_fn`` call (one
-    kernel launch on the card) per party and data shard, the shards'
-    partials summed in shard order."""
-    per_shard = [
-        [base_fn(block, g[rows], h[rows], weight[:, rows], assign[:, rows],
-                 num_nodes, num_bins, **kw) for block in shard]
-        for shard, rows in mesh_roles.shard_rows(blocks, g.shape[0])]
-    return [mesh_roles.shard_sum(parts) for parts in zip(*per_shard)]
+                      num_bins, kw, child: bool = False) -> list:
+    """Each party's histogram of its own columns, the data shards'
+    partials summed in shard order: ONE ``base_fn`` call (one kernel
+    launch on the card) over the blocks' whole table for every (party,
+    shard) block.
+
+    Row ``r`` of shard ``s`` enters at node ``s * num_nodes + assign[r]``
+    (``child``: the ids are child slots ``parent * 2 + side`` and the
+    offset ``2 * s * num_nodes`` keeps their parity), so the call's
+    ``(T, S * num_nodes, d, B, 2K+1)`` holds each shard's partial as a
+    node range and each party's histogram as a column slice, each cell
+    the sum of the same rows in the same order as a launch on the block
+    alone.  That holds only for ids in ``[0, num_nodes)`` (``child``:
+    ``[0, 2 * num_nodes)``): an id past the end would land in the next
+    shard's nodes where a block's launch drops it.  ``core.tree``'s ids
+    stay in range: compaction clamps its slots to ``a_width - 1`` and a
+    child slot is at most ``2 * prev_a - 1``.
+
+    A shared root (``root_delta_rows``) ignores ``assign``, so there each
+    block keeps its own call.  Returns the parties' histograms, party 0
+    first, as column views."""
+    shards = mesh_roles.shard_rows(blocks, g.shape[0])
+    if kw.get("root_delta_rows"):
+        per_shard = [
+            [base_fn(block, g[rows], h[rows], weight[:, rows],
+                     assign[:, rows], num_nodes, num_bins, **kw)
+             for block in shard]
+            for shard, rows in shards]
+        return [mesh_roles.shard_sum(parts) for parts in zip(*per_shard)]
+    n_shards, n_parties = len(shards), len(shards[0][0])
+    ids = assign
+    if n_shards > 1:
+        ids = torch.add(assign, blocks.row_shard,
+                        alpha=(2 if child else 1) * num_nodes)
+    hist = base_fn(blocks.table, g, h, weight, ids, n_shards * num_nodes,
+                   num_bins, **kw)
+    trace_mod.global_tracer().counter(
+        "federation.hist_blocks", {"blocks": n_parties * n_shards})
+    total = mesh_roles.shard_sum(hist.unflatten(1, (n_shards, num_nodes))
+                                 .unbind(1))
+    d_party = shards[0][0][0].shape[1]
+    return [total[:, :, p * d_party:(p + 1) * d_party]
+            for p in range(n_parties)]
 
 
 def federated_round_histogram_fn(
     base_fn: Callable = hist_mod.compute_round_histogram,
     meter=None,
     gather: Callable = plain_gather,
+    child: bool = False,
 ):
     """Round histogram provider of the ``histogram`` aggregation.
 
-    Each party computes its block's (T, nodes, d_party, B, 2K+1) round
-    histogram with ``base_fn`` (the keywords ``level`` and
-    ``root_delta_rows`` pass through: shared root stays a local
-    transformation), then the payloads are gathered along the feature axis:
+    Each party's (T, nodes, d_party, B, 2K+1) round histogram is its
+    column slice of the level's one ``base_fn`` call (``_local_histograms``;
+    the keywords ``level`` and ``root_delta_rows`` pass through: shared
+    root stays a local transformation), then the payloads are gathered
+    along the feature axis:
     ONE exchange per level for the whole round.  ``meter`` records the
     payload one party ships, before ``gather`` (the exchange seam: the
-    plain or the double-buffered gather) splits anything."""
+    plain or the double-buffered gather) splits anything.  ``child``:
+    ``base_fn`` is a child form, whose ids are child slots."""
 
     def fn(blocks, g, h, weight, assign, num_nodes, num_bins, **kw):
         local = _local_histograms(base_fn, blocks, g, h, weight, assign,
-                                  num_nodes, num_bins, kw)
+                                  num_nodes, num_bins, kw, child)
         with trace_mod.global_tracer().span(EXCHANGE, cat="federation"):
             if meter is not None:
                 meter.record("histograms", local[0])
@@ -103,16 +144,19 @@ def federated_round_histogram_fn(
 
 
 def local_round_histogram_fn(
-        base_fn: Callable = hist_mod.compute_round_histogram):
+        base_fn: Callable = hist_mod.compute_round_histogram,
+        child: bool = False):
     """Round histogram provider of the ``argmax`` aggregation: no exchange.
     The parties' histograms are stored side by side along the feature axis
     (storage, not a message: party p's columns hold only its own
     histogram), so sibling subtraction and compaction run on them as on a
-    centralized one; the chooser reads each party's columns alone."""
+    centralized one; the chooser reads each party's columns alone.
+    ``child`` as in ``federated_round_histogram_fn``."""
 
     def fn(blocks, g, h, weight, assign, num_nodes, num_bins, **kw):
         return torch.cat(_local_histograms(base_fn, blocks, g, h, weight,
-                                           assign, num_nodes, num_bins, kw),
+                                           assign, num_nodes, num_bins, kw,
+                                           child),
                          dim=2)
 
     return fn

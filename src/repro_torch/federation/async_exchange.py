@@ -45,20 +45,22 @@ def async_round_histogram_fn(
     meter=None,
     base_fn: Callable = hist_mod.compute_round_histogram,
     draws: Optional[compress.Draws] = None,
+    child: bool = False,
 ):
     """Histogram-aggregation round provider with the double-buffered
     exchange: the raw provider with the buffered gather, or the quantized
-    one with its int payload buffered (the scales ship whole)."""
+    one with its int payload buffered (the scales ship whole).  ``child``:
+    ``base_fn`` is a child form."""
     if transport is None:
         transport = compress.RAW
     gather = partial(double_buffered_gather, split_axis=-2)
     if transport.kind == "quantized":
         return compress.quantized_round_histogram_fn(
             transport, meter=meter, base_fn=base_fn, gather=gather,
-            draws=draws)
+            draws=draws, child=child)
     if transport.kind == "raw":
         return aggregator.federated_round_histogram_fn(
-            base_fn, meter=meter, gather=gather)
+            base_fn, meter=meter, gather=gather, child=child)
     raise ValueError(
         f"transport {transport.kind!r} does not apply to the async "
         "histogram exchange (use 'raw' or 'quantized')")

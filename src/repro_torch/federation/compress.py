@@ -346,6 +346,7 @@ def quantized_round_histogram_fn(
     base_fn: Callable = hist_mod.compute_round_histogram,
     gather: Optional[Callable] = None,
     draws: Optional[Draws] = None,
+    child: bool = False,
 ):
     """Round histogram provider with the quantized exchange: each party
     quantizes its (T, nodes, d_party, B, 2K) g/h channels (the count stays
@@ -358,7 +359,8 @@ def quantized_round_histogram_fn(
     Shared root (``root_delta_rows``) is applied before quantization.  The
     scales are ``absmax`` times the float32 ``1 / qmax``: the JAX transport
     runs inside a jitted program, where XLA turns the division by the constant
-    into that product."""
+    into that product.  ``child``: ``base_fn`` is a child form, whose ids
+    are child slots."""
     if transport.kind != "quantized":
         raise ValueError(f"need a quantized TransportSpec, got {transport!r}")
     if gather is None:
@@ -369,7 +371,7 @@ def quantized_round_histogram_fn(
         qs, scales = [], []
         locals_ = aggregator._local_histograms(
             base_fn, blocks, g, h, weight, assign, num_nodes, num_bins,
-            dict(kw, level=level))
+            dict(kw, level=level), child)
         shape = tuple(locals_[0][..., :-1].shape)
         uniforms = [None] * len(locals_)
         if transport.stochastic and draws is not None:

@@ -18,6 +18,12 @@ parties are column blocks: shard ``s`` holds rows ``[s * m, (s + 1) * m)``
 with ``m = ceil(n / S)`` (the rows pad to ``S * m`` with weight-0 rows),
 and ``ShardBlocks`` holds every (shard, party) block.  Each ``psum`` is a
 sum of the shard partials in shard order 0..S-1.
+
+Both kinds of blocks also carry the ``table`` they were cut from (no
+copy), so that one histogram launch over it serves every block: each
+party's histogram is a column slice of the full-width one, and each
+shard's partial a node range once ``ShardBlocks.row_shard`` is folded into
+the node ids (``aggregator._local_histograms``).
 """
 
 from __future__ import annotations
@@ -64,14 +70,19 @@ class PartyLayout:
         if binned.shape[1] != self.num_features:
             raise ValueError(f"binned has {binned.shape[1]} columns, the "
                              f"layout {self.num_features}")
-        return PartyBlocks(tuple(
-            binned[:, self.columns(p)].contiguous()
-            for p in range(self.num_parties)))
+        return PartyBlocks((binned[:, self.columns(p)].contiguous()
+                            for p in range(self.num_parties)), binned)
 
 
 class PartyBlocks(tuple):
     """The parties' (n, d_party) column blocks, party 0 first: what the
-    federated providers take where the centralized ones take ``binned``."""
+    federated providers take where the centralized ones take ``binned``.
+    ``table`` is the (n, d) tensor they were cut from."""
+
+    def __new__(cls, blocks, table: torch.Tensor):
+        self = super().__new__(cls, blocks)
+        self.table = table
+        return self
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,14 +108,24 @@ class DataLayout:
             raise ValueError(f"{n} rows do not split into "
                              f"{self.num_shards} shards; pad them first")
         m = n // self.num_shards
-        return ShardBlocks(tuple(
-            parties.split(binned[s * m:(s + 1) * m])
-            for s in range(self.num_shards)))
+        row_shard = torch.arange(n, dtype=torch.int32,
+                                 device=binned.device) // m
+        return ShardBlocks((parties.split(binned[s * m:(s + 1) * m])
+                            for s in range(self.num_shards)), binned,
+                           row_shard)
 
 
 class ShardBlocks(tuple):
     """The data shards' ``PartyBlocks``, shard 0 first: each shard's rows
-    split into the parties' column blocks."""
+    split into the parties' column blocks.  ``table`` is the (n_pad, d)
+    tensor they were cut from and ``row_shard`` (n_pad,) int32 each row's
+    shard, both made once per forest build."""
+
+    def __new__(cls, shards, table: torch.Tensor, row_shard: torch.Tensor):
+        self = super().__new__(cls, shards)
+        self.table = table
+        self.row_shard = row_shard
+        return self
 
 
 def shard_rows(blocks, n: int) -> list:

@@ -7,8 +7,9 @@ one process on one card (``mesh_roles``): ``forest_builder`` splits
 ``binned`` into the parties' contiguous blocks once per forest build, and
 ``core.tree.build_round`` drives the federated providers of
 ``aggregator.py`` / ``compress.py`` / ``async_exchange.py`` over them.
-Every party's histogram is one launch of the histogram kernel on its block
-(on a CPU tensor, the kernel's plain version), direct at level 0 and the
+Every party's histogram comes from one launch of the histogram kernel a
+level over the full-width table (on a CPU tensor, the kernel's plain
+version), each party's its column slice, direct at level 0 and the
 kernel's child form at levels >= 1.
 
 Lossless: both aggregations build the trees the centralized builder
@@ -19,10 +20,11 @@ first-maximum tie-break).
 The data axis (``-sharded``): the rows pad to a multiple of the shard
 count with weight-0 rows (after the engine drew its masks over the real
 ``n``), split into contiguous row blocks (``mesh_roles.DataLayout``), and
-every (party, shard) histogram is its own launch; the shard partials are
-summed in shard order, and the per-tree predictions are sliced back to
-``n``.  The chaos transport (``-chaos``) wraps the level exchange in
-``chaos.ChaoticGather``; its slot counter restarts at every forest build.
+the level's one launch takes each row's shard into its node id; the shard
+partials are summed in shard order, and the per-tree predictions are
+sliced back to ``n``.  The chaos transport (``-chaos``) wraps the level
+exchange in ``chaos.ChaoticGather``; its slot counter restarts at every
+forest build.
 
 Registry names: the JAX lattice, ``vfl-histogram[-async][-q8|-q16]`` and
 ``vfl-argmax[-topk]``, each with its ``-sharded``, ``-chaos`` and
@@ -90,7 +92,7 @@ def make_vfl_backend(
         the wrapped transport's and ``meter`` gains the ``retries`` phase.
       shard_samples, data_shards: the data axis — the rows as
         ``data_shards`` contiguous blocks (``mesh_roles.DataLayout``),
-        one histogram launch per (party, shard).
+        still one histogram launch a level.
     """
     cfg = tree
     layout = parties if isinstance(parties, mesh_roles.PartyLayout) else None
@@ -119,8 +121,10 @@ def make_vfl_backend(
         chaos_gather = chaos_mod.ChaoticGather(chaos, base_gather,
                                                num_parties, meter=meter)
 
-    direct = histogram_dispatch("cuda-fused-round")
-    child = histogram_dispatch("cuda-fused-round-child")
+    # (base provider, whether it is the child form): a provider folds the
+    # data shards into its node ids by the form it wraps
+    forms = ((histogram_dispatch("cuda-fused-round"), False),
+             (histogram_dispatch("cuda-fused-round-child"), True))
     if aggregation == "histogram":
         if transport.kind not in ("raw", "quantized"):
             raise ValueError(
@@ -130,22 +134,23 @@ def make_vfl_backend(
             # the same providers, with the chaos gather at the seam
             if transport.kind == "quantized":
                 hist_fn, child_fn = (compress.quantized_round_histogram_fn(
-                    transport, meter, base, gather=chaos_gather, draws=draws)
-                    for base in (direct, child))
+                    transport, meter, base, gather=chaos_gather, draws=draws,
+                    child=child) for base, child in forms)
             else:
                 hist_fn, child_fn = (aggregator.federated_round_histogram_fn(
-                    base, meter, gather=chaos_gather)
-                    for base in (direct, child))
+                    base, meter, gather=chaos_gather, child=child)
+                    for base, child in forms)
         elif async_exchange:
             hist_fn, child_fn = (async_mod.async_round_histogram_fn(
-                transport, meter, base, draws) for base in (direct, child))
+                transport, meter, base, draws, child=child)
+                for base, child in forms)
         elif transport.kind == "quantized":
             hist_fn, child_fn = (compress.quantized_round_histogram_fn(
-                transport, meter, base, draws=draws)
-                for base in (direct, child))
+                transport, meter, base, draws=draws, child=child)
+                for base, child in forms)
         else:
             hist_fn, child_fn = (aggregator.federated_round_histogram_fn(
-                base, meter) for base in (direct, child))
+                base, meter, child=child) for base, child in forms)
         choose_fn = aggregator.centralized_round_choose_fn(cfg, num_parties,
                                                            meter)
     elif aggregation == "argmax":
@@ -153,8 +158,8 @@ def make_vfl_backend(
             raise ValueError(
                 f"transport {transport.kind!r} does not apply to the argmax "
                 "aggregation (use 'raw' or 'topk')")
-        hist_fn, child_fn = (aggregator.local_round_histogram_fn(base)
-                             for base in (direct, child))
+        hist_fn, child_fn = (aggregator.local_round_histogram_fn(base, child)
+                             for base, child in forms)
         k = transport.k if transport.kind == "topk" else 1
         choose_fn = compress.topk_round_choose_fn(cfg, k, num_parties, meter,
                                                   gather=chaos_gather)

@@ -7,19 +7,20 @@ The JAX script only compiles the round on 256 (or 512) forced devices and
 reads its collective bytes from the HLO.  The port runs it on one card:
 the parties are column blocks and the data shards row blocks
 (``federation/mesh_roles.py``), so a (16 data x 16 party) grid is 256
-(party, shard) blocks, each level one histogram-kernel launch a block.
-Each run reports the wire bytes the run metered per phase, their delta
-against the wire model (``compress.reconciled_ledger``; must be 0), the
-histogram launches (parties x shards a level on the card), the wall, and
-three roofline terms on one card's rates (``launch/mesh.py``).  The
-exchange bytes are the wire bytes but the (g, h) broadcast, which the
-JAX program receives as a replicated input and so holds no collective for:
-what the JAX script's compiled collective bytes count.
+(party, shard) blocks, and each level one histogram-kernel launch over all
+of them (the shard folded into the node id).  Each run reports the wire
+bytes the run metered per phase, their delta against the wire model
+(``compress.reconciled_ledger``; must be 0), the histogram launches (one a
+level on the card), the wall, and three roofline terms on one card's rates
+(``launch/mesh.py``).  The exchange bytes are the wire bytes but the (g,
+h) broadcast, which the JAX program receives as a replicated input and so
+holds no collective for: what the JAX script's compiled collective bytes
+count.
 
 * ``compute_s``: the histogram adds (3 a weighted row, feature and level)
   over the float32 peak;
 * ``memory_s``: the bytes the histogram launches must move (each input
-  read once, each histogram written once) over the HBM rate;
+  read once a level, each histogram written once) over the HBM rate;
 * ``collective_s``: the exchange bytes over the link rate.
 
 The sweep (``main``) prints the JAX script's three ratios of exchange
@@ -97,24 +98,22 @@ def round_inputs(n: int, n_pad: int, d: int, n_trees: int,
             "fmask": fmask.to(device)}
 
 
-def histogram_work(inputs: dict, parties: int, shards: int,
+def histogram_work(inputs: dict, shards: int,
                    tree: TreeConfig) -> tuple[float, float]:
-    """(bytes, adds) of the round's histogram launches: per (party, shard)
-    block and level, the block's bins, assignments, g, h and weights read
-    once and the histogram (T trees x nodes x columns x bins x 3) written
-    once; 3 adds a weighted row and column (the direct form's count, an
-    upper bound at a child level)."""
+    """(bytes, adds) of the round's histogram launches: one a level over
+    the whole (n, d) table, its bins, assignments, g, h and weights read
+    once and the histogram (T trees x shards x nodes x columns x bins x 3:
+    every (party, shard) block's) written once; 3 adds a weighted row and
+    column (the direct form's count, an upper bound at a child level)."""
     n, d = inputs["binned"].shape
     T = inputs["smask"].shape[0]
-    m, d_p = n // shards, d // parties
     weighted = float((inputs["smask"] != 0).sum())
     nbytes = adds = 0.0
     for level in range(tree.max_depth):
         nodes = protocol._nodes_sent(level, tree.hist_subtraction,
                                      tree.max_active_nodes)
-        per_block = (m * d_p * 4 + 2 * T * m * 4 + 2 * m * 4
-                     + T * nodes * d_p * NUM_BINS * 3 * 4)
-        nbytes += parties * shards * per_block
+        nbytes += (n * d * 4 + 2 * T * n * 4 + 2 * n * 4
+                   + T * shards * nodes * d * NUM_BINS * 3 * 4)
         adds += 3 * weighted * d
     return nbytes, adds
 
@@ -149,10 +148,10 @@ def run(aggregation: str, n: int = 150_000, d: int = 16, n_trees: int = 5,
         save: bool = True) -> dict:
     """Build one forest round on the grid and check it: the meter equals
     the wire model on every phase (delta 0), and on the card the histogram
-    kernel launched parties x shards times a level.  ``oracle`` also holds
-    the trees against ``local-cuda``'s on the same inputs, and reports the
-    oracle build's launches apart.  ``cache``
-    keeps inputs (and oracle trees) between runs of one sweep."""
+    kernel launched once a level.  ``oracle`` also holds the trees against
+    ``local-cuda``'s on the same inputs, and reports the oracle build's
+    launches apart.  ``cache`` keeps inputs (and oracle trees) between runs
+    of one sweep."""
     device = resolve(device)
     cache = {} if cache is None else cache
     grid, parties, shards = _grid(multi_pod, data_shards)
@@ -190,10 +189,10 @@ def run(aggregation: str, n: int = 150_000, d: int = 16, n_trees: int = 5,
     launches = hist_ops.kernel_launches("histogram_round")
     sorts = hist_ops.kernel_launches("histogram_sort")
     if device.type == "cuda":
-        want = parties * shards * max_depth
-        _check(launches == want == sorts,
+        _check(launches == max_depth == sorts,
                f"{tag}: {launches} histogram launches ({sorts} sorts) == "
-               f"{parties} parties x {shards} shards x {max_depth} levels")
+               f"{max_depth} levels, one for all {parties} parties x "
+               f"{shards} shards")
 
     cfg = FedGBFConfig(rounds=1, n_trees_max=n_trees, n_trees_min=n_trees,
                        tree=tree)
@@ -230,7 +229,7 @@ def run(aggregation: str, n: int = 150_000, d: int = 16, n_trees: int = 5,
                f"exact; leaves within rtol {LEAF_RTOL} atol {LEAF_ATOL}, "
                f"max |diff| {leaf_diff:.3e})")
 
-    nbytes, adds = histogram_work(inputs, parties, shards, tree)
+    nbytes, adds = histogram_work(inputs, shards, tree)
     report = {
         "tag": tag, "status": "ok", "aggregation": aggregation,
         "hist_subtraction": hist_subtraction,

@@ -185,15 +185,16 @@ def main(argv=None) -> None:
                     choices=backend_mod.available_backends(),
                     help="named TreeBackend: local-cuda runs the histogram "
                          "kernel, local the plain PyTorch providers, vfl-* "
-                         "the parties as column blocks (kernel per party)")
+                         "the parties as column blocks (one kernel launch a "
+                         "level for all of them)")
     ap.add_argument("--parties", type=int, default=2,
                     help="party count for vfl-* backends")
     ap.add_argument("--data-shards", type=int, default=0,
                     help="row shards of a vfl-*-sharded backend: contiguous "
                          "row blocks on the one card, one histogram launch "
-                         "per party and shard, the partials summed in shard "
-                         "order; uneven n pads with weight-0 rows inside "
-                         "the backend.  0 = 1")
+                         "a level for every (party, shard) block, the "
+                         "partials summed in shard order; uneven n pads "
+                         "with weight-0 rows inside the backend.  0 = 1")
     ap.add_argument("--engine", default="scan", choices=("scan", "loop"),
                     help="training engine: the port has one, with the JAX "
                          "scan engine's contract; 'loop' is refused")

@@ -74,7 +74,7 @@ def test_dryrun_and_production_grid_on_card(smoke):
     """The dry-run's one-card case (phase 8a: a real SmolLM-135M train
     step's FLOPs equal the ``meta`` count, its state and peak memory agree)
     and the FedGBF production-grid sweep (8c: every meter reconciled,
-    trees equal ``local-cuda``'s, parties x shards launches a level)."""
+    trees equal ``local-cuda``'s, one launch a level)."""
     chip_smoke, device = smoke
     card = chip_smoke.card_line()
     out = chip_smoke.phase_dryrun_card(device, card)

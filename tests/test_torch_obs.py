@@ -151,13 +151,14 @@ def test_train_spans_per_level_inside_rounds(backend):
             assert "kernel.histogram" not in inside
         else:
             # the (g, h) broadcast, then a level's histograms, feature
-            # masks and routing maps
+            # masks and routing maps; one launch a level for both parties
             assert inside["federation.exchange"] == 1 + 3 * TREE.max_depth
-            assert inside["kernel.histogram"] == 2 * TREE.max_depth
+            assert inside["kernel.histogram"] == TREE.max_depth
 
 
 def test_sharded_spans_open_per_level_not_per_block():
-    """Only ``kernel.histogram`` opens per (party, shard) block."""
+    """No span opens per (party, shard) block: the level's one histogram
+    launch records its blocks on the ``federation.hist_blocks`` counter."""
     parties, shards = 2, 2
     bk = get_backend("vfl-histogram-sharded", tree=TREE,
                      num_parties=parties, data_shards=shards)
@@ -165,7 +166,10 @@ def test_sharded_spans_open_per_level_not_per_block():
     _train(bk, tr)
     names = Counter(s.name for s in tr.spans)
     levels = ROUNDS * TREE.max_depth
-    assert names["kernel.histogram"] == parties * shards * levels
+    assert names["kernel.histogram"] == levels
+    assert [values for name, _, values in tr.counters
+            if name == "federation.hist_blocks"] == (
+        [{"blocks": parties * shards}] * levels)
     assert names["federation.exchange"] == ROUNDS + 3 * levels
     for phase in TREE_PHASES:
         assert names[phase] == levels

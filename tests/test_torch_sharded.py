@@ -97,12 +97,11 @@ def jax_tree(cfg):
     return JTreeConfig(**dataclasses.asdict(cfg))
 
 
-def test_sharded_training_and_launches_per_shard(monkeypatch):
+def test_sharded_training_and_one_histogram_call_a_level(monkeypatch):
     """End to end, 3 rounds on 509 rows: the sharded run's trees equal the
     unsharded run's, features and thresholds exact, margins at the
-    tolerance; every level makes one histogram call per party and shard."""
-    from repro_torch.federation import aggregator
-
+    tolerance; every level makes ONE histogram call (one kernel launch on
+    the card) for all 4 x 3 (party, shard) blocks."""
     rng = np.random.default_rng(3)
     n, d = 509, 8
     x = rng.normal(size=(n, d)).astype(np.float32)
@@ -111,22 +110,26 @@ def test_sharded_training_and_launches_per_shard(monkeypatch):
     cfg = FedGBFConfig(rounds=3, n_trees_max=3, n_trees_min=2,
                        rho_id_min=0.5, rho_id_max=0.8, tree=tree)
     calls = []
-    base = aggregator._local_histograms
+    dispatch = vfl.histogram_dispatch
 
-    def counting(*args):
-        out = base(*args)
-        calls.append(len(args[1]) * len(args[1][0]))
-        return out
+    def counting_dispatch(impl):
+        base = dispatch(impl)
+
+        def fn(binned, *args, **kw):
+            calls.append(tuple(binned.shape))
+            return base(binned, *args, **kw)
+        return fn
 
     ref, ref_h = boosting.train_fedgbf(
         x, y, cfg, backend=t_backend.get_backend(
             "vfl-histogram", tree=tree, num_parties=4), device="cpu")
-    monkeypatch.setattr(aggregator, "_local_histograms", counting)
+    monkeypatch.setattr(vfl, "histogram_dispatch", counting_dispatch)
     model, hist = boosting.train_fedgbf(
         x, y, cfg, backend=t_backend.get_backend(
             "vfl-histogram-sharded", tree=tree, num_parties=4,
             data_shards=3), device="cpu")
-    assert calls == [4 * 3] * (tree.max_depth * cfg.rounds)
+    # one call a level over the whole padded (n_pad, d) table
+    assert calls == [(510, d)] * (tree.max_depth * cfg.rounds)
     for a, b in zip(model.forests, ref.forests):
         assert torch.equal(a.feature, b.feature)
         assert torch.equal(a.threshold, b.threshold)
