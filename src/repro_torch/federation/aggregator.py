@@ -1,12 +1,12 @@
 """Per-party collectives of the VFL protocol: the counterpart of
 ``repro/federation/aggregator.py``.
 
-The parties are column blocks of one process (``mesh_roles.PartyBlocks``),
-so each provider works over the blocks where the JAX package's runs once
-per party inside ``shard_map`` (the histograms in one launch over the
-blocks' table, the routing block by block), and each collective is a
-tensor operation over the party axis behind one seam that meters its
-payload:
+The parties are column ranges of one table in one process
+(``mesh_roles.FederatedTable``), so each provider works over their views
+where the JAX package's runs once per party inside ``shard_map`` (the
+histograms in one launch over the whole table, the routing block by
+block), and each collective is a tensor operation over the party axis
+behind one seam that meters its payload:
 
 * ``all_gather(tiled)`` over the party axis is ``plain_gather``, a
   ``torch.cat`` of the parties' payloads along the feature axis;
@@ -34,8 +34,8 @@ kernel's child form (or ``histogram.as_round_child_fn``), so the exchanged
 and metered payload is the left children's, at parent width; every party
 derives the right siblings after the merge (``tree.build_round``).
 
-The data axis (``-sharded``): the providers also take
-``mesh_roles.ShardBlocks``, every (shard, party) block of the padded rows.
+The data axis (``-sharded``): the table's rows are padded and split into
+the data shards' row ranges (``mesh_roles.DataLayout``).
 The histograms of every (party, shard) block come from ONE ``base_fn``
 call a level (one kernel launch on the card) over the whole table, with
 each row's shard folded into its node id (``_local_histograms``); the
@@ -68,18 +68,18 @@ def plain_gather(parts, axis: int) -> torch.Tensor:
     return torch.cat(list(parts), dim=axis)
 
 
-def _local_histograms(base_fn, blocks, g, h, weight, assign, num_nodes,
+def _local_histograms(base_fn, table, g, h, weight, assign, num_nodes,
                       num_bins, kw, child: bool = False) -> list:
     """Each party's histogram of its own columns, the data shards'
     partials summed in shard order: ONE ``base_fn`` call (one kernel
-    launch on the card) over the blocks' whole table for every (party,
-    shard) block.
+    launch on the card) over the whole ``mesh_roles.FederatedTable`` for
+    every (party, shard) block.
 
     Row ``r`` of shard ``s`` enters at node ``s * num_nodes + assign[r]``
     (``child``: the ids are child slots ``parent * 2 + side`` and the
     offset ``2 * s * num_nodes`` keeps their parity), so the call's
     ``(T, S * num_nodes, d, B, 2K+1)`` holds each shard's partial as a
-    node range and each party's histogram as a column slice, each cell
+    node range and each party's histogram as a column range, each cell
     the sum of the same rows in the same order as a launch on the block
     alone.  That holds only for ids in ``[0, num_nodes)`` (``child``:
     ``[0, 2 * num_nodes)``): an id past the end would land in the next
@@ -88,30 +88,29 @@ def _local_histograms(base_fn, blocks, g, h, weight, assign, num_nodes,
     child slot is at most ``2 * prev_a - 1``.
 
     A shared root (``root_delta_rows``) ignores ``assign``, so there each
-    block keeps its own call.  Returns the parties' histograms, party 0
-    first, as column views."""
-    shards = mesh_roles.shard_rows(blocks, g.shape[0])
+    shard keeps its own full-width call, the partials summed in shard
+    order.  Returns the parties' histograms, party 0 first, as column
+    views."""
+    parties = table.parties
     if kw.get("root_delta_rows"):
-        per_shard = [
-            [base_fn(block, g[rows], h[rows], weight[:, rows],
-                     assign[:, rows], num_nodes, num_bins, **kw)
-             for block in shard]
-            for shard, rows in shards]
-        return [mesh_roles.shard_sum(parts) for parts in zip(*per_shard)]
-    n_shards, n_parties = len(shards), len(shards[0][0])
+        total = mesh_roles.shard_sum(
+            base_fn(table.table[rows], g[rows], h[rows], weight[:, rows],
+                    assign[:, rows], num_nodes, num_bins, **kw)
+            for rows in table.rows)
+        return parties.parts(total, 2)
+    n_shards = table.data.num_shards
     ids = assign
-    if n_shards > 1:
-        ids = torch.add(assign, blocks.row_shard,
+    if table.row_shard is not None:
+        ids = torch.add(assign, table.row_shard,
                         alpha=(2 if child else 1) * num_nodes)
-    hist = base_fn(blocks.table, g, h, weight, ids, n_shards * num_nodes,
+    hist = base_fn(table.table, g, h, weight, ids, n_shards * num_nodes,
                    num_bins, **kw)
     trace_mod.global_tracer().counter(
-        "federation.hist_blocks", {"blocks": n_parties * n_shards})
+        "federation.hist_blocks",
+        {"blocks": parties.num_parties * n_shards})
     total = mesh_roles.shard_sum(hist.unflatten(1, (n_shards, num_nodes))
                                  .unbind(1))
-    d_party = shards[0][0][0].shape[1]
-    return [total[:, :, p * d_party:(p + 1) * d_party]
-            for p in range(n_parties)]
+    return parties.parts(total, 2)
 
 
 def federated_round_histogram_fn(
@@ -122,8 +121,8 @@ def federated_round_histogram_fn(
 ):
     """Round histogram provider of the ``histogram`` aggregation.
 
-    Each party's (T, nodes, d_party, B, 2K+1) round histogram is its
-    column slice of the level's one ``base_fn`` call (``_local_histograms``;
+    Each party's (T, nodes, its columns, B, 2K+1) round histogram is its
+    column range of the level's one ``base_fn`` call (``_local_histograms``;
     the keywords ``level`` and ``root_delta_rows`` pass through: shared
     root stays a local transformation), then the payloads are gathered
     along the feature axis:
@@ -132,8 +131,8 @@ def federated_round_histogram_fn(
     plain or the double-buffered gather) splits anything.  ``child``:
     ``base_fn`` is a child form, whose ids are child slots."""
 
-    def fn(blocks, g, h, weight, assign, num_nodes, num_bins, **kw):
-        local = _local_histograms(base_fn, blocks, g, h, weight, assign,
+    def fn(table, g, h, weight, assign, num_nodes, num_bins, **kw):
+        local = _local_histograms(base_fn, table, g, h, weight, assign,
                                   num_nodes, num_bins, kw, child)
         with trace_mod.global_tracer().span(EXCHANGE, cat="federation"):
             if meter is not None:
@@ -153,8 +152,8 @@ def local_round_histogram_fn(
     centralized one; the chooser reads each party's columns alone.
     ``child`` as in ``federated_round_histogram_fn``."""
 
-    def fn(blocks, g, h, weight, assign, num_nodes, num_bins, **kw):
-        return torch.cat(_local_histograms(base_fn, blocks, g, h, weight,
+    def fn(table, g, h, weight, assign, num_nodes, num_bins, **kw):
+        return torch.cat(_local_histograms(base_fn, table, g, h, weight,
                                            assign, num_nodes, num_bins, kw,
                                            child),
                          dim=2)
@@ -162,22 +161,21 @@ def local_round_histogram_fn(
     return fn
 
 
-def local_round_leaf_fn(num_shards: int = 1):
+def local_round_leaf_fn(data=mesh_roles.DataLayout()):
     """Round leaf-statistics provider ((T, n) -> (T, leaves, 2K+1)): a
     local pass of the active party (Alg. 2 step 14), which also serves the
     compaction liveness counts; weights and routing are known to every
-    party, so nothing is exchanged.  Over ``num_shards`` data shards (the
-    rows padded to a multiple of it) each shard's statistics are its own
-    pass, summed in shard order."""
-    if num_shards == 1:
+    party, so nothing is exchanged.  Over ``data``'s shards (the rows
+    padded to a multiple of their count) each shard's statistics are its
+    own pass, summed in shard order."""
+    if data.num_shards == 1:
         return hist_mod.round_leaf_stats
 
     def fn(g, h, weight, assign, num_leaves):
-        m = g.shape[0] // num_shards
         return mesh_roles.shard_sum(
             hist_mod.round_leaf_stats(g[r], h[r], weight[:, r],
                                       assign[:, r], num_leaves)
-            for r in (slice(s * m, (s + 1) * m) for s in range(num_shards)))
+            for r in data.rows(g.shape[0]))
 
     return fn
 
@@ -186,13 +184,14 @@ def centralized_round_choose_fn(cfg: TreeConfig, num_parties: int,
                                 meter=None):
     """Round split chooser of the ``histogram`` aggregation: the merged
     (T, nodes, d, B, 2K+1) histogram is evaluated as centrally.  The
-    per-tree feature masks are each party's (T, d_party) columns, gathered
-    to match; ``meter`` records one party's mask (1 B per local feature
-    per tree)."""
+    per-tree feature masks are each party's columns of the (T, d) masks,
+    gathered to match; ``meter`` records one party's mask (1 B per local
+    feature per tree)."""
 
     def fn(hist_global, feature_mask):
         with trace_mod.global_tracer().span(EXCHANGE, cat="federation"):
-            parts = feature_mask.chunk(num_parties, dim=1)
+            parts = mesh_roles.even_layout(
+                num_parties, feature_mask.shape[1]).parts(feature_mask, 1)
             if meter is not None:
                 meter.record("feature_mask", parts[0])
             fmask = plain_gather(parts, 1)
@@ -225,27 +224,23 @@ def federated_round_route_fn(meter=None):
     decisions in ONE exchange per level (Alg. 2 step 3).
 
     Each party decides the rows whose node splits on one of its own
-    columns (``f_local = f_global - p * d_party``; an unsplit node, -1, has
-    no owner), bit-packs them into a (T, ceil(n/8)) uint8 map, one a data
-    shard over its own rows (``meter`` records party 0's maps, every shard
-    in one record), and each shard's maps are summed over the parties in
-    uint8: every bit has at most one non-zero contributor, so the sum is
-    the OR."""
+    columns (``PartyLayout.local``; an unsplit node, -1, has no owner),
+    reading its block of the table, bit-packs them into a (T, ceil(n/8))
+    uint8 map, one a data shard over its own rows (``meter`` records party
+    0's maps, every shard in one record), and each shard's maps are summed
+    over the parties in uint8: every bit has at most one non-zero
+    contributor, so the sum is the OR."""
 
-    def fn(blocks, assign, decision):
+    def fn(table, assign, decision):
         node = assign.long()
         f_global = torch.gather(decision.feature, 1, node)     # (T, n)
         thr = torch.gather(decision.threshold, 1, node)
-        shards = mesh_roles.shard_rows(blocks, assign.shape[1])
         shard_bits = []
-        for shard, rows in shards:
+        for s, rows in enumerate(table.rows):
             fg, tr = f_global[:, rows], thr[:, rows]
             bits = []
-            for p, block in enumerate(shard):
-                d_party = block.shape[1]
-                f_local = fg - p * d_party
-                owned = (f_local >= 0) & (f_local < d_party) & (fg >= 0)
-                col = f_local.clamp(0, d_party - 1).long()
+            for p, block in enumerate(table.blocks(s)):
+                owned, col = table.parties.local(fg, p)
                 fv = torch.gather(block, 1, col.T).T            # (T, m)
                 bits.append(owned & (fv > tr))
             shard_bits.append(bits)
@@ -257,8 +252,9 @@ def federated_round_route_fn(meter=None):
                              torch.stack([maps[0] for maps in shard_maps]))
             go_right = [
                 unpack_bits(torch.sum(torch.stack(maps), dim=0,
-                                      dtype=torch.uint8), shard[0].shape[0])
-                for (shard, _), maps in zip(shards, shard_maps)]
+                                      dtype=torch.uint8),
+                            rows.stop - rows.start)
+                for rows, maps in zip(table.rows, shard_maps)]
         return assign * 2 + (go_right[0] if len(go_right) == 1
                              else torch.cat(go_right, dim=1))
 

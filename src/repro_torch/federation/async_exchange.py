@@ -7,20 +7,18 @@ asynchronous collectives.  The split is along an axis that is not
 gathered, so the re-joined result equals the single gather element for
 element.  The port keeps the same seam and the same split: two
 concatenations over the parties, one per half of the bins, joined back on
-the bin axis.  The meter records the payload ONCE, before the split: the
-double buffer is a detail of the transport, not a second message, so the
-ledger stays exact.
+the bin axis.  ``vfl.make_vfl_backend`` passes this gather to the raw or
+the quantized histogram provider (``-async``; the quantized one buffers
+its int payload, the scales ship whole).  The meter records the payload
+ONCE, before the split: the double buffer is a detail of the transport,
+not a second message, so the ledger stays exact.
 """
 
 from __future__ import annotations
 
-from functools import partial
-from typing import Callable, Optional
-
 import torch
 
-from repro_torch.core import histogram as hist_mod
-from repro_torch.federation import aggregator, compress
+from repro_torch.federation import aggregator
 
 
 def double_buffered_gather(parts, axis: int,
@@ -38,29 +36,3 @@ def double_buffered_gather(parts, axis: int,
     lo = aggregator.plain_gather([a for a, _ in halves], axis)
     hi = aggregator.plain_gather([b for _, b in halves], axis)
     return torch.cat([lo, hi], dim=split_axis)
-
-
-def async_round_histogram_fn(
-    transport: Optional[compress.TransportSpec] = None,
-    meter=None,
-    base_fn: Callable = hist_mod.compute_round_histogram,
-    draws: Optional[compress.Draws] = None,
-    child: bool = False,
-):
-    """Histogram-aggregation round provider with the double-buffered
-    exchange: the raw provider with the buffered gather, or the quantized
-    one with its int payload buffered (the scales ship whole).  ``child``:
-    ``base_fn`` is a child form."""
-    if transport is None:
-        transport = compress.RAW
-    gather = partial(double_buffered_gather, split_axis=-2)
-    if transport.kind == "quantized":
-        return compress.quantized_round_histogram_fn(
-            transport, meter=meter, base_fn=base_fn, gather=gather,
-            draws=draws, child=child)
-    if transport.kind == "raw":
-        return aggregator.federated_round_histogram_fn(
-            base_fn, meter=meter, gather=gather, child=child)
-    raise ValueError(
-        f"transport {transport.kind!r} does not apply to the async "
-        "histogram exchange (use 'raw' or 'quantized')")

@@ -30,7 +30,7 @@ from repro_torch.core import histogram as hist_mod
 from repro_torch.core import prng
 from repro_torch.core import split as split_mod
 from repro_torch.core.types import TreeConfig
-from repro_torch.federation import aggregator
+from repro_torch.federation import aggregator, mesh_roles
 from repro_torch.obs import trace as trace_mod
 
 #: histogram stat channels on the wire under quantization for a K = 1
@@ -253,9 +253,6 @@ def probe_tree_cost(
     says which phases scale by the passive parties); ``grad_per_round`` is
     the (g, h) broadcast to one passive party per round."""
     d = num_features if num_features is not None else num_parties * 2
-    if d % num_parties:
-        raise ValueError(f"num_features={d} must divide over {num_parties} "
-                         "parties")
     meter = _dry_build(num_parties, tree, 1, n_samples, d, n_channels,
                        device, aggregation=aggregation, transport=transport,
                        async_exchange=async_exchange, chaos=chaos,
@@ -313,10 +310,11 @@ def reconciled_ledger(
 ):
     """Measured-vs-predicted accounting of a training run in one call: the
     dry probe's per-tree bytes recorded into a ``protocol.ProtocolLedger``
-    built for the same even party dims (and, for a ``-sharded`` backend,
-    ``data_shards`` > 0 row shards; the chaos transport's ``retries`` with
-    ``chaos``), ready for ``reconcile()`` / ``breakdown()``.  Pass the
-    backend's own transport (``descriptor.transport_spec``)."""
+    built for the same party dims (``mesh_roles.PartyLayout``; and, for a
+    ``-sharded`` backend, ``data_shards`` > 0 row shards; the chaos
+    transport's ``retries`` with ``chaos``), ready for ``reconcile()`` /
+    ``breakdown()``.  Pass the backend's own transport
+    (``descriptor.transport_spec``)."""
     from repro_torch.federation import protocol
 
     d = num_features if num_features is not None else num_parties * 2
@@ -326,7 +324,8 @@ def reconciled_ledger(
         n_channels=n_channels, device=device, chaos=chaos,
         data_shards=data_shards)
     spec = protocol.ProtocolSpec(
-        n_samples=n_samples, party_dims=(d // num_parties,) * num_parties,
+        n_samples=n_samples,
+        party_dims=mesh_roles.PartyLayout(num_parties, d).party_dims,
         num_bins=tree.num_bins, max_depth=tree.max_depth,
         aggregation=aggregation, hist_subtraction=tree.hist_subtraction,
         max_active_nodes=tree.max_active_nodes,
@@ -349,8 +348,8 @@ def quantized_round_histogram_fn(
     child: bool = False,
 ):
     """Round histogram provider with the quantized exchange: each party
-    quantizes its (T, nodes, d_party, B, 2K) g/h channels (the count stays
-    local) with one scale per (tree, node, feature, channel), the int
+    quantizes its (T, nodes, its columns, B, 2K) g/h channels (the count
+    stays local) with one scale per (tree, node, feature, channel), the int
     payloads ride ``gather`` (the exchange seam) and the scales a plain
     gather, and the merged histogram is dequantized with a zero count
     channel.  Each party's rounding noise is ``uniform(transport_key(seed,
@@ -416,7 +415,7 @@ def topk_round_choose_fn(
 
     Each party evaluates the gains of its own columns of the side-by-side
     party histograms (``aggregator.local_round_histogram_fn``), masks its
-    features out with -inf, and takes its ``min(k, d_party * B)`` best by
+    features out with -inf, and takes its ``min(k, columns * B)`` best by
     a STABLE descending sort — equal gains keep the lower flat index, as
     ``lax.top_k`` orders them (``torch.topk`` promises no order of ties).
     The candidates merge party-major (``gather``, the stacking seam: a
@@ -427,21 +426,21 @@ def topk_round_choose_fn(
 
     def fn(hist, feature_mask):
         t, num_nodes, d, num_bins, _ = hist.shape
-        d_party = d // num_parties
-        k_eff = min(k, d_party * num_bins)
+        layout = mesh_roles.even_layout(num_parties, d)
         gains_all, feats_all, thrs_all = [], [], []
-        for party in range(num_parties):
-            cols = slice(party * d_party, (party + 1) * d_party)
-            gains = split_mod.split_gains(hist[:, :, cols], cfg)
-            gains = torch.where(feature_mask[:, None, cols, None], gains,
+        for party, (hist_p, mask_p) in enumerate(zip(
+                layout.parts(hist, 2), layout.parts(feature_mask, 1))):
+            gains = split_mod.split_gains(hist_p, cfg)
+            gains = torch.where(mask_p[:, None, :, None], gains,
                                 torch.full_like(gains, split_mod.NEG_INF))
-            flat = gains.reshape(t, num_nodes, d_party * num_bins)
+            flat = gains.reshape(t, num_nodes, -1)
             top_gain, top_idx = torch.sort(flat, dim=-1, descending=True,
                                            stable=True)
+            k_eff = min(k, flat.shape[-1])
             top_gain, top_idx = top_gain[..., :k_eff], top_idx[..., :k_eff]
             gains_all.append(top_gain.contiguous())
             feats_all.append((top_idx // num_bins).to(torch.int32)
-                             + party * d_party)
+                             + layout.columns(party).start)
             thrs_all.append((top_idx % num_bins).to(torch.int32))
         with trace_mod.global_tracer().span(aggregator.EXCHANGE,
                                             cat="federation"):

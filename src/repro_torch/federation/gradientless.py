@@ -40,14 +40,7 @@ from repro_torch.core import prng
 from repro_torch.core import tree as tree_mod
 from repro_torch.core.types import FedGBFConfig, PackedEnsemble, pack_ensemble
 from repro_torch.device import resolve
-
-def _party_slices(d: int, num_parties: int) -> list:
-    if d % num_parties:
-        raise ValueError(
-            f"d={d} must shard evenly over {num_parties} parties; "
-            "pad columns with data.tabular.pad_features")
-    d_party = d // num_parties
-    return [slice(p * d_party, (p + 1) * d_party) for p in range(num_parties)]
+from repro_torch.federation import mesh_roles
 
 
 def _combine(w: torch.Tensor, margins: torch.Tensor,
@@ -124,15 +117,14 @@ def train_gradientless(
     dev = resolve(device)
     x = boosting._as_tensor(x, torch.float32, dev)
     y = boosting._as_tensor(y, torch.float32, dev)
-    n, d = x.shape
-    slices = _party_slices(d, num_parties)
+    layout = mesh_roles.PartyLayout(num_parties, x.shape[1])
     if masks is not None and len(masks) != num_parties:
         raise ValueError(f"{len(masks)} mask sets for {num_parties} parties")
     obj = objective_mod.get_objective(cfg.loss)
 
     party_packed, party_margins, tree_counts = [], [], []
-    for p, sl in enumerate(slices):
-        x_p = x[:, sl].contiguous()
+    for p, cols in enumerate(layout.parts(x, 1)):
+        x_p = cols.contiguous()
         model_p, _ = boosting.train_fedgbf(
             x_p, y, cfg, prng.fold_in(prng.as_key(rng), p),
             masks=None if masks is None else masks[p], backend=backend,
@@ -162,9 +154,9 @@ def train_gradientless(
             meter.record("tree_scales", scales)
     loss_after = float(obj.loss_value(y, _combine(scales, margins, base)))
 
-    d_party = d // num_parties
     features = torch.cat([
-        torch.where(pk.feature >= 0, pk.feature + p * d_party, pk.feature)
+        torch.where(pk.feature >= 0, pk.feature + layout.columns(p).start,
+                    pk.feature)
         for p, pk in enumerate(party_packed)])
     packed = PackedEnsemble(
         feature=features,

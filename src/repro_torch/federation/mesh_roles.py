@@ -3,32 +3,33 @@
 
 The JAX package runs every party in one SPMD program, with the parties as
 the ``"model"`` axis of a device mesh, and a party learns its id from
-``jax.lax.axis_index`` inside ``shard_map``.  The port runs the parties as
-column blocks of one process on one card: party ``p`` holds the contiguous
-columns ``[p * d_party, (p + 1) * d_party)`` of ``binned``
-(``tabular.even_partition``), and the providers of ``federation/
-aggregator.py`` loop over the blocks, so a party's id is its position in
-``PartyBlocks``.  Party 0 is the active party (the label holder); the
-others are passive.
+``jax.lax.axis_index`` inside ``shard_map``.  The port runs the parties in
+one process on one card, as column ranges of one table: ``PartyLayout``
+says which columns party ``p`` owns (``tabular.even_partition``: the
+contiguous columns ``[p * d_party, (p + 1) * d_party)``), and it is the only
+code of the port that maps a party to its columns.  Party 0 is the active
+party (the label holder); the others are passive.
 
 The JAX package's data axis (``-sharded`` backends) shards the rows over a
 second mesh axis and ``psum``s every per-shard partial.  On the one card
-the ``S`` data shards are contiguous row blocks (``DataLayout``), as the
-parties are column blocks: shard ``s`` holds rows ``[s * m, (s + 1) * m)``
-with ``m = ceil(n / S)`` (the rows pad to ``S * m`` with weight-0 rows),
-and ``ShardBlocks`` holds every (shard, party) block.  Each ``psum`` is a
-sum of the shard partials in shard order 0..S-1.
+the ``S`` data shards are contiguous row ranges (``DataLayout``): shard
+``s`` holds rows ``[s * m, (s + 1) * m)`` with ``m = ceil(n / S)`` (the
+rows pad to ``S * m`` with weight-0 rows).  Each ``psum`` is a sum of the
+shard partials in shard order 0..S-1.
 
-Both kinds of blocks also carry the ``table`` they were cut from (no
-copy), so that one histogram launch over it serves every block: each
-party's histogram is a column slice of the full-width one, and each
-shard's partial a node range once ``ShardBlocks.row_shard`` is folded into
-the node ids (``aggregator._local_histograms``).
+``FederatedTable`` is a forest build's data: the one (n_pad, d) table with
+both layouts.  A (shard, party) block is a view of it, never a copy, and one
+histogram launch over the table serves every block: each party's histogram
+is a column range of the full-width one, and each shard's partial a node
+range once ``row_shard`` is folded into the node ids
+(``aggregator._local_histograms``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Optional
 
 import torch
 
@@ -41,53 +42,58 @@ POD_AXIS = "pod"
 
 @dataclasses.dataclass(frozen=True)
 class PartyLayout:
-    """``num_parties`` even column blocks of ``num_features`` columns."""
+    """Which of ``num_features`` columns each of ``num_parties`` parties
+    owns: even contiguous ranges, party 0 first."""
 
     num_parties: int
     num_features: int
+    partition: tabular.VerticalPartition = dataclasses.field(
+        init=False, repr=False, compare=False)
 
     def __post_init__(self):
         if self.num_parties < 1:
             raise ValueError(f"need >= 1 party, got {self.num_parties}")
-        tabular.even_partition(self.num_features, self.num_parties)
+        object.__setattr__(self, "partition", tabular.even_partition(
+            self.num_features, self.num_parties))
 
     @property
-    def d_party(self) -> int:
-        return self.num_features // self.num_parties
+    def party_dims(self) -> tuple:
+        """Each party's column count, party 0 first."""
+        return self.partition.dims()
 
     def columns(self, party: int) -> slice:
-        return slice(party * self.d_party, (party + 1) * self.d_party)
+        return self.partition.columns(party)
 
     def party_index(self, feature: int) -> int:
         """The party that owns global column ``feature``."""
-        if not 0 <= feature < self.num_features:
-            raise IndexError(feature)
-        return feature // self.d_party
+        return self.partition.owner_of(feature)
 
-    def split(self, binned: torch.Tensor) -> "PartyBlocks":
-        """Each party's columns of ``binned`` (n, d) as its own contiguous
-        (n, d_party) tensor: split once per forest build, never per level."""
-        if binned.shape[1] != self.num_features:
-            raise ValueError(f"binned has {binned.shape[1]} columns, the "
-                             f"layout {self.num_features}")
-        return PartyBlocks((binned[:, self.columns(p)].contiguous()
-                            for p in range(self.num_parties)), binned)
+    def parts(self, x: torch.Tensor, dim: int) -> list:
+        """Each party's columns of ``x`` along ``dim``, party 0 first, as
+        views."""
+        return list(torch.split(x, self.party_dims, dim=dim))
+
+    def local(self, feature: torch.Tensor, party: int) -> tuple:
+        """``party``'s reading of the global column ids ``feature`` (-1: no
+        column): whether it owns each, and each one's index among its own
+        columns (clamped into them where it does not own it)."""
+        cols = self.columns(party)
+        width = cols.stop - cols.start
+        f_local = feature - cols.start
+        owned = (f_local >= 0) & (f_local < width)
+        return owned, f_local.clamp(0, width - 1).long()
 
 
-class PartyBlocks(tuple):
-    """The parties' (n, d_party) column blocks, party 0 first: what the
-    federated providers take where the centralized ones take ``binned``.
-    ``table`` is the (n, d) tensor they were cut from."""
-
-    def __new__(cls, blocks, table: torch.Tensor):
-        self = super().__new__(cls, blocks)
-        self.table = table
-        return self
+@functools.lru_cache(maxsize=32)
+def even_layout(num_parties: int, num_features: int) -> PartyLayout:
+    """``PartyLayout(num_parties, num_features)``, made once: the providers
+    ask for it at every level."""
+    return PartyLayout(num_parties, num_features)
 
 
 @dataclasses.dataclass(frozen=True)
 class DataLayout:
-    """``num_shards`` even contiguous row blocks (the data axis)."""
+    """``num_shards`` even contiguous row ranges (the data axis)."""
 
     num_shards: int = 1
 
@@ -99,44 +105,49 @@ class DataLayout:
         """``n`` rounded up to a multiple of the shard count."""
         return -(-n // self.num_shards) * self.num_shards
 
-    def split(self, binned: torch.Tensor,
-              parties: PartyLayout) -> "ShardBlocks":
-        """Every (shard, party) block of ``binned`` (n_pad, d), n_pad a
-        multiple of the shard count, as its own contiguous tensor."""
-        n = binned.shape[0]
+    def rows(self, n: int) -> tuple:
+        """Each shard's slice of ``n`` (padded) rows, shard 0 first."""
         if n % self.num_shards:
             raise ValueError(f"{n} rows do not split into "
                              f"{self.num_shards} shards; pad them first")
         m = n // self.num_shards
-        row_shard = torch.arange(n, dtype=torch.int32,
-                                 device=binned.device) // m
-        return ShardBlocks((parties.split(binned[s * m:(s + 1) * m])
-                            for s in range(self.num_shards)), binned,
-                           row_shard)
+        return tuple(slice(s * m, (s + 1) * m)
+                     for s in range(self.num_shards))
 
 
-class ShardBlocks(tuple):
-    """The data shards' ``PartyBlocks``, shard 0 first: each shard's rows
-    split into the parties' column blocks.  ``table`` is the (n_pad, d)
-    tensor they were cut from and ``row_shard`` (n_pad,) int32 each row's
-    shard, both made once per forest build."""
+@dataclasses.dataclass(frozen=True)
+class FederatedTable:
+    """One forest build's federated data, what the federated providers take
+    where the centralized ones take ``binned``: the (n_pad, d) int32
+    ``table`` (never copied here), its ``parties`` and ``data`` layouts,
+    ``rows``, each shard's row slice, and ``row_shard``, each row's shard
+    as (n_pad,) int32 (None on one shard)."""
 
-    def __new__(cls, shards, table: torch.Tensor, row_shard: torch.Tensor):
-        self = super().__new__(cls, shards)
-        self.table = table
-        self.row_shard = row_shard
-        return self
+    table: torch.Tensor
+    parties: PartyLayout
+    data: DataLayout
+    rows: tuple
+    row_shard: Optional[torch.Tensor]
 
+    @classmethod
+    def of(cls, table: torch.Tensor, parties: PartyLayout,
+           data: DataLayout = DataLayout()) -> "FederatedTable":
+        if table.shape[1] != parties.num_features:
+            raise ValueError(f"binned has {table.shape[1]} columns, the "
+                             f"layout {parties.num_features}")
+        n = table.shape[0]
+        rows = data.rows(n)
+        row_shard = None
+        if data.num_shards > 1:
+            row_shard = torch.arange(n, dtype=torch.int32,
+                                     device=table.device) // (
+                                         n // data.num_shards)
+        return cls(table, parties, data, rows, row_shard)
 
-def shard_rows(blocks, n: int) -> list:
-    """``[(party_blocks, rows), ...]``, one a data shard in shard order:
-    the shard's ``PartyBlocks`` and its slice of the ``n`` (padded) rows.
-    Unsharded ``PartyBlocks`` are the one shard holding every row."""
-    if not isinstance(blocks, ShardBlocks):
-        return [(blocks, slice(None))]
-    m = n // len(blocks)
-    return [(shard, slice(s * m, (s + 1) * m))
-            for s, shard in enumerate(blocks)]
+    def blocks(self, shard: int) -> list:
+        """The parties' blocks of shard ``shard``'s rows, party 0 first, as
+        views of the table."""
+        return self.parties.parts(self.table[self.rows[shard]], 1)
 
 
 def shard_sum(parts) -> torch.Tensor:

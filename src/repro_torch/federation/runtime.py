@@ -1,6 +1,7 @@
 """Fault-tolerant federation runtime: retries and party-dropout
-degradation — a copy of ``repro/federation/runtime.py`` (numpy only), kept
-here so the port imports no module of the JAX package.  The availability
+degradation — a copy of ``repro/federation/runtime.py`` (numpy only; a
+party's columns come from ``mesh_roles.PartyLayout``), kept here so the
+port imports no module of the JAX package.  The availability
 draws come from ``np.random.default_rng([seed, 15485863])`` in both
 packages, so a schedule equals the JAX package's array for array.
 
@@ -32,6 +33,8 @@ import dataclasses
 from typing import List, Optional
 
 import numpy as np
+
+from repro_torch.federation import mesh_roles
 
 __all__ = [
     "RetryPolicy",
@@ -140,11 +143,11 @@ def dropout_schedule(
 
 
 def party_column_slice(party: int, d: int, num_parties: int) -> slice:
-    """Columns owned by ``party`` under the repo's even vertical split."""
+    """Columns owned by ``party`` under the repo's even vertical split
+    (``mesh_roles.PartyLayout``)."""
     if d % num_parties:
         raise ValueError(f"d={d} not divisible by num_parties={num_parties}")
-    dp = d // num_parties
-    return slice(party * dp, (party + 1) * dp)
+    return mesh_roles.PartyLayout(num_parties, d).columns(party)
 
 
 def degradation_masks(

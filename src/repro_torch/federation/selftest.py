@@ -51,6 +51,7 @@ from repro_torch.federation import (
     chaos as chaos_mod,
     compress,
     gradientless,
+    mesh_roles,
     runtime,
     vfl,
 )
@@ -318,13 +319,12 @@ def check_gradientless(num_parties: int, loss: str = "logistic",
         x_np, y_np, cfg, prng.PRNGKey(0), num_parties, meter=meter,
         device=device)
     assert info["loss_after"] <= info["loss_before"] + 1e-6, info
-    d_party = d // num_parties
+    layout = mesh_roles.PartyLayout(num_parties, d)
     offset = 0
     for p, t_p in enumerate(info["tree_counts"]):
         feats = packed.feature[offset:offset + t_p]
-        real = feats[feats >= 0]
-        assert bool(((real >= p * d_party)
-                     & (real < (p + 1) * d_party)).all()), (
+        owned, _ = layout.local(feats[feats >= 0], p)
+        assert bool(owned.all()), (
             f"party {p} tree references foreign columns")
         offset += t_p
     predicted = gradientless.wire_cost(n, info["tree_counts"],

@@ -2,29 +2,29 @@
 ``repro/federation/vfl.py``.
 
 The JAX package runs a round's forest build as one SPMD program whose
-party axis is a mesh axis.  The port runs the parties as column blocks of
-one process on one card (``mesh_roles``): ``forest_builder`` splits
-``binned`` into the parties' contiguous blocks once per forest build, and
-``core.tree.build_round`` drives the federated providers of
-``aggregator.py`` / ``compress.py`` / ``async_exchange.py`` over them.
-Every party's histogram comes from one launch of the histogram kernel a
-level over the full-width table (on a CPU tensor, the kernel's plain
-version), each party's its column slice, direct at level 0 and the
-kernel's child form at levels >= 1.
+party axis is a mesh axis.  The port runs the parties as column ranges of
+one table in one process on one card (``mesh_roles``): ``forest_builder``
+wraps ``binned`` in a ``mesh_roles.FederatedTable`` once per forest build
+(no copy), and ``core.tree.build_round`` drives the federated providers of
+``aggregator.py`` / ``compress.py`` over it.  Every party's histogram
+comes from one launch of the histogram kernel a level over the full-width
+table (on a CPU tensor, the kernel's plain version), each party's its
+column range, direct at level 0 and the kernel's child form at levels
+>= 1.
 
 Lossless: both aggregations build the trees the centralized builder
-builds, bit for bit (the party blocks only partition the feature axis of
+builds, bit for bit (the party ranges only partition the feature axis of
 computations that are per feature; the merges keep the centralized
 first-maximum tie-break).
 
 The data axis (``-sharded``): the rows pad to a multiple of the shard
 count with weight-0 rows (after the engine drew its masks over the real
-``n``), split into contiguous row blocks (``mesh_roles.DataLayout``), and
+``n``), split into contiguous row ranges (``mesh_roles.DataLayout``), and
 the level's one launch takes each row's shard into its node id; the shard
 partials are summed in shard order, and the per-tree predictions are
 sliced back to ``n``.  The chaos transport (``-chaos``) wraps the level
-exchange in ``chaos.ChaoticGather``; its slot counter restarts at every
-forest build.
+exchange (the plain or the double-buffered ``-async`` gather) in
+``chaos.ChaoticGather``; its slot counter restarts at every forest build.
 
 Registry names: the JAX lattice, ``vfl-histogram[-async][-q8|-q16]`` and
 ``vfl-argmax[-topk]``, each with its ``-sharded``, ``-chaos`` and
@@ -111,46 +111,34 @@ def make_vfl_backend(
             "axis); the unsharded names hold every row in one block")
     data_layout = mesh_roles.DataLayout(data_shards)
 
-    # ONE chaos wrapper per backend over the base gather the flags select;
-    # the forest builders restart its slot counter at every entry
+    # the exchange gather: plain or double-buffered, and ONE chaos wrapper
+    # per backend over it; the forest builders restart its slot counter at
+    # every entry
+    gather = aggregator.plain_gather
+    if async_exchange:
+        gather = partial(async_mod.double_buffered_gather, split_axis=-2)
     chaos_gather = None
     if chaos is not None:
-        base_gather = (partial(async_mod.double_buffered_gather,
-                               split_axis=-2)
-                       if async_exchange else aggregator.plain_gather)
-        chaos_gather = chaos_mod.ChaoticGather(chaos, base_gather,
-                                               num_parties, meter=meter)
+        gather = chaos_gather = chaos_mod.ChaoticGather(
+            chaos, gather, num_parties, meter=meter)
 
     # (base provider, whether it is the child form): a provider folds the
     # data shards into its node ids by the form it wraps
     forms = ((histogram_dispatch("cuda-fused-round"), False),
              (histogram_dispatch("cuda-fused-round-child"), True))
     if aggregation == "histogram":
-        if transport.kind not in ("raw", "quantized"):
+        if transport.kind == "quantized":
+            provider = partial(compress.quantized_round_histogram_fn,
+                               transport, meter, draws=draws)
+        elif transport.kind == "raw":
+            provider = partial(aggregator.federated_round_histogram_fn,
+                               meter=meter)
+        else:
             raise ValueError(
                 f"transport {transport.kind!r} does not apply to the "
                 "histogram aggregation (use 'raw' or 'quantized')")
-        if chaos_gather is not None:
-            # the same providers, with the chaos gather at the seam
-            if transport.kind == "quantized":
-                hist_fn, child_fn = (compress.quantized_round_histogram_fn(
-                    transport, meter, base, gather=chaos_gather, draws=draws,
-                    child=child) for base, child in forms)
-            else:
-                hist_fn, child_fn = (aggregator.federated_round_histogram_fn(
-                    base, meter, gather=chaos_gather, child=child)
-                    for base, child in forms)
-        elif async_exchange:
-            hist_fn, child_fn = (async_mod.async_round_histogram_fn(
-                transport, meter, base, draws, child=child)
-                for base, child in forms)
-        elif transport.kind == "quantized":
-            hist_fn, child_fn = (compress.quantized_round_histogram_fn(
-                transport, meter, base, draws=draws, child=child)
-                for base, child in forms)
-        else:
-            hist_fn, child_fn = (aggregator.federated_round_histogram_fn(
-                base, meter, child=child) for base, child in forms)
+        hist_fn, child_fn = (provider(base_fn=base, gather=gather,
+                                      child=child) for base, child in forms)
         choose_fn = aggregator.centralized_round_choose_fn(cfg, num_parties,
                                                            meter)
     elif aggregation == "argmax":
@@ -162,7 +150,7 @@ def make_vfl_backend(
                              for base, child in forms)
         k = transport.k if transport.kind == "topk" else 1
         choose_fn = compress.topk_round_choose_fn(cfg, k, num_parties, meter,
-                                                  gather=chaos_gather)
+                                                  gather=gather)
     else:
         raise ValueError(f"unknown aggregation {aggregation!r}")
 
@@ -193,36 +181,30 @@ def make_vfl_backend(
         round_child_histogram_fn=child_fn,
         round_choose_fn=choose_fn,
         round_route_fn=aggregator.federated_round_route_fn(meter),
-        round_leaf_fn=aggregator.local_round_leaf_fn(data_shards),
+        round_leaf_fn=aggregator.local_round_leaf_fn(data_layout),
     )
 
-    def _blocks(binned, g, h, sample_mask, _cfg):
+    def _table(binned, g, h, sample_mask, _cfg):
         """Refuse a differing tree config or an uneven split, restart the
-        chaos slots, meter the round's (g, h) broadcast (the real n rows),
-        pad the rows for the data shards (weight 0) and split the blocks.
-        Returns (blocks, g, h, sample_mask)."""
+        chaos slots, meter the round's (g, h) broadcast (the real n rows)
+        and pad the rows for the data shards (weight 0).  Returns
+        (``mesh_roles.FederatedTable``, g, h, sample_mask)."""
         if _cfg is not None and _cfg != cfg:
             raise ValueError(
                 f"backend {descriptor.impl!r} was built with {cfg}, but the "
                 f"caller passed {_cfg}; construct the backend with the same "
                 "TreeConfig as FedGBFConfig.tree")
-        d = binned.shape[1]
-        if d % num_parties != 0:
-            raise ValueError(
-                f"d={d} must shard evenly over {num_parties} parties; "
-                "pad columns with data.tabular.pad_features")
-        if layout is not None and d != layout.num_features:
-            raise ValueError(f"binned has {d} columns, the layout "
-                             f"{layout.num_features}")
+        parties = (layout if layout is not None
+                   else mesh_roles.even_layout(num_parties, binned.shape[1]))
         if chaos_gather is not None:
             chaos_gather.begin_trace()
         if meter is not None:
             # the per-round (g, h) broadcast active -> each passive party
             meter.record("grad_broadcast", g)
             meter.record("grad_broadcast", h)
-        parties = mesh_roles.PartyLayout(num_parties, d)
         if not shard_samples:
-            return parties.split(binned), g, h, sample_mask
+            return (mesh_roles.FederatedTable.of(binned, parties), g, h,
+                    sample_mask)
         # the pad comes after the engine drew its masks over the real n:
         # padded rows carry weight 0, so every histogram, leaf statistic,
         # liveness count and root delta ignores them
@@ -231,17 +213,18 @@ def make_vfl_backend(
         binned, g, h = (F.pad(binned, (0, 0, 0, pad)), F.pad(g, rows),
                         F.pad(h, rows))
         sample_mask = F.pad(sample_mask.to(torch.float32), (0, pad))
-        return data_layout.split(binned, parties), g, h, sample_mask
+        return (mesh_roles.FederatedTable.of(binned, parties, data_layout),
+                g, h, sample_mask)
 
     def forest_builder_per_tree(binned, g, h, sample_mask, feature_mask,
                                 _cfg=None, root_delta_rows=0):
         n = binned.shape[0]
         with trace_mod.global_tracer().span(aggregator.EXCHANGE,
                                             cat="federation"):
-            blocks, g, h, sample_mask = _blocks(binned, g, h, sample_mask,
-                                                _cfg)
+            table, g, h, sample_mask = _table(binned, g, h, sample_mask,
+                                              _cfg)
         trees, per_tree = forest_mod.build_forest_per_tree(
-            blocks, g, h, sample_mask, feature_mask, cfg, backend=inner,
+            table, g, h, sample_mask, feature_mask, cfg, backend=inner,
             root_delta_rows=root_delta_rows)
         return trees, per_tree[:, :n]
 
@@ -252,7 +235,8 @@ def make_vfl_backend(
         return trees, tree_mod._mean0(per_tree)
 
     # The per-party providers live on the inner backend only: they take
-    # party blocks, not ``binned``.  The public surface is the forest build.
+    # the federated table, not ``binned``.  The public surface is the
+    # forest build.
     return TreeBackend(
         descriptor=descriptor,
         forest_builder=forest_builder,

@@ -330,17 +330,31 @@ def test_topk_choose_equals_centralized_with_ties(k):
 
 
 def test_party_layout_and_blocks():
-    """Each party's block is its contiguous columns; a feature's owner is
-    its block; an uneven split is refused."""
+    """Each party owns contiguous columns; a feature's owner is the party
+    whose columns hold it; the federated table's blocks are views of those
+    columns; an uneven split is refused."""
     layout = mesh_roles.PartyLayout(4, 8)
-    binned = torch.arange(24, dtype=torch.int32).reshape(3, 8)
-    blocks = layout.split(binned)
-    assert len(blocks) == 4 and mesh_roles.num_parties(layout) == 4
-    for p, block in enumerate(blocks):
-        assert block.is_contiguous()
-        assert torch.equal(block, binned[:, 2 * p:2 * p + 2])
+    assert mesh_roles.num_parties(layout) == 4
+    assert [layout.columns(p) for p in range(4)] == [
+        slice(2 * p, 2 * p + 2) for p in range(4)]
+    assert layout.party_dims == (2, 2, 2, 2)
     assert [layout.party_index(f) for f in range(8)] == [0, 0, 1, 1, 2, 2,
                                                          3, 3]
+    feature = torch.tensor([-1, 0, 1, 2, 3, 7])
+    for p in range(4):
+        owned, col = layout.local(feature, p)
+        assert owned.tolist() == [f >= 0 and layout.party_index(f) == p
+                                  for f in feature.tolist()]
+        assert col[owned].tolist() == [f - 2 * p
+                                       for f in feature[owned].tolist()]
+    binned = torch.arange(24, dtype=torch.int32).reshape(3, 8)
+    table = mesh_roles.FederatedTable.of(binned, layout)
+    assert table.table is binned
+    blocks = table.blocks(0)
+    assert len(blocks) == 4
+    for p, block in enumerate(blocks):
+        assert block.data_ptr() == binned[:, 2 * p:].data_ptr()
+        assert torch.equal(block, binned[:, 2 * p:2 * p + 2])
     with pytest.raises(ValueError, match="pad"):
         mesh_roles.PartyLayout(3, 8)
     x, y = small_data()

@@ -1,16 +1,19 @@
 """One histogram launch a level for every (party, shard) block
 (``federation.aggregator._local_histograms``), held against the per-block
-loop kept here as the oracle: ``base_fn`` on each (party, shard) block,
-the shard partials summed in shard order 0..S-1 (``mesh_roles.shard_sum``)
-and the parties side by side.  Everything bit for bit (``torch.equal``):
+loop kept here as the oracle: ``base_fn`` on each (party, shard) block, cut
+as its own contiguous tensor from the table, the shard partials summed in
+shard order 0..S-1 (``mesh_roles.shard_sum``) and the parties side by side.
+Everything bit for bit (``torch.equal``):
 
 * each aggregation's provider (the histogram exchange, the argmax storage,
   the q8 transport with fixed draws) over (P, S) in {(1, 1), (4, 1), (4, 3),
   (10, 16)}, n not a multiple of S (weight-0 pad rows), the direct and the
   child form at levels 0-2 and at a compacted level, K = 1 and K = 3; the
   meter's records and the ``federation.hist_blocks`` counter;
+* the federated table holds the caller's tensor and answers its (shard,
+  party) blocks as views;
 * the ids fed to the fold stay in range on compacted depth-4 builds;
-* a shared root (``root_delta_rows``) keeps one call per block;
+* a shared root (``root_delta_rows``) makes one full-width call a shard;
 * whole trainings of the ``vfl-*`` backends equal the oracle's;
 * on the card (``cuda``), the grid's shape: 150,000 x 10, 10 parties x 16
   shards, 5 trees, one launch a level equal to the 160 block launches.
@@ -45,14 +48,17 @@ NUM_BINS = 8
 T = 3
 
 
-def per_block(base_fn, blocks, g, h, weight, assign, num_nodes, num_bins,
+def per_block(base_fn, table, g, h, weight, assign, num_nodes, num_bins,
               kw, child=False):
     """The oracle: one ``base_fn`` call per (party, shard) block on its own
-    rows and columns, the shard partials summed in shard order."""
+    rows and columns, each block a contiguous copy of the table's rows and
+    columns, the shard partials summed in shard order."""
+    parties = table.parties
     per_shard = [
-        [base_fn(block, g[rows], h[rows], weight[:, rows], assign[:, rows],
-                 num_nodes, num_bins, **kw) for block in shard]
-        for shard, rows in mesh_roles.shard_rows(blocks, g.shape[0])]
+        [base_fn(table.table[rows, parties.columns(p)].contiguous(), g[rows],
+                 h[rows], weight[:, rows], assign[:, rows], num_nodes,
+                 num_bins, **kw) for p in range(parties.num_parties)]
+        for rows in table.rows]
     return [mesh_roles.shard_sum(parts) for parts in zip(*per_shard)]
 
 
@@ -63,17 +69,16 @@ def oracle_installed():
         yield
 
 
-def make_blocks(binned, parties, shards):
-    """The blocks as ``vfl``'s forest build cuts them from the padded
-    table."""
-    layout = mesh_roles.PartyLayout(parties, binned.shape[1])
-    if shards == 1:
-        return layout.split(binned)
-    return mesh_roles.DataLayout(shards).split(binned, layout)
+def make_table(binned, parties, shards):
+    """The federated table as ``vfl``'s forest build makes it from the
+    padded rows."""
+    return mesh_roles.FederatedTable.of(
+        binned, mesh_roles.PartyLayout(parties, binned.shape[1]),
+        mesh_roles.DataLayout(shards))
 
 
 def inputs(parties, shards, k, seed=0):
-    """(blocks, g, h, weight): n rows, not a multiple of S, padded with
+    """(table, g, h, weight): n rows, not a multiple of S, padded with
     weight-0 rows; one column a party at 10 parties (the grid), else two;
     0/1 sample masks with a few fractional weights."""
     rng = np.random.default_rng(seed)
@@ -90,7 +95,7 @@ def inputs(parties, shards, k, seed=0):
     w[:, n:] = 0.0
     g[n:] = 0.0
     h[n:] = 0.0
-    return make_blocks(binned, parties, shards), g, h, torch.from_numpy(w)
+    return make_table(binned, parties, shards), g, h, torch.from_numpy(w)
 
 
 def level_cases(n, seed=1):
@@ -136,11 +141,11 @@ def provider(aggregation, child, meter):
                                             (10, 16)])
 def test_folded_provider_equals_per_block(parties, shards, aggregation):
     for k in (1, 3):
-        blocks, g, h, w = inputs(parties, shards, k)
+        table, g, h, w = inputs(parties, shards, k)
         for name, child, level, nodes, assign, factor in level_cases(
                 g.shape[0]):
             weight = w if factor is None else w * factor
-            args = (blocks, g, h, weight, assign, nodes, NUM_BINS)
+            args = (table, g, h, weight, assign, nodes, NUM_BINS)
             meter, want_meter = compress.MessageMeter(), \
                 compress.MessageMeter()
             tracer = trace_mod.Tracer()
@@ -150,7 +155,7 @@ def test_folded_provider_equals_per_block(parties, shards, aggregation):
                 want = provider(aggregation, child, want_meter)(
                     *args, level=level)
             what = f"K={k} {name}"
-            assert got.shape == (T, nodes, blocks.table.shape[1],
+            assert got.shape == (T, nodes, table.table.shape[1],
                                  NUM_BINS, 2 * k + 1), what
             assert torch.equal(got, want), what
             assert meter.entries == want_meter.entries, what
@@ -159,18 +164,31 @@ def test_folded_provider_equals_per_block(parties, shards, aggregation):
             ], what
 
 
-def test_blocks_carry_their_table():
-    """The blocks keep the (padded) table they were cut from, no copy, and
-    each row's shard, made once per forest build."""
+@pytest.mark.parametrize("shards", [1, 3])
+def test_table_holds_views_not_copies(shards):
+    """The table is the caller's (padded) tensor, no copy; ``row_shard`` is
+    each row's shard, made once per forest build (none on one shard); each
+    (shard, party) block is a view of the table equal to ``binned[rows,
+    cols]``."""
     binned = torch.arange(6 * 4, dtype=torch.int32).reshape(6, 4)
-    party_blocks = make_blocks(binned, 2, 1)
-    assert party_blocks.table is binned
-    shard_blocks = make_blocks(binned, 2, 3)
-    assert shard_blocks.table is binned
-    assert shard_blocks.row_shard.tolist() == [0, 0, 1, 1, 2, 2]
-    assert shard_blocks.row_shard.dtype == torch.int32
-    for s, shard in enumerate(shard_blocks):
-        assert torch.equal(shard.table, binned[2 * s:2 * s + 2])
+    table = make_table(binned, 2, shards)
+    assert table.table is binned
+    if shards == 1:
+        assert table.row_shard is None
+    else:
+        assert table.row_shard.tolist() == [0, 0, 1, 1, 2, 2]
+        assert table.row_shard.dtype == torch.int32
+    m = 6 // shards
+    assert table.rows == tuple(slice(s * m, (s + 1) * m)
+                               for s in range(shards))
+    for s in range(shards):
+        blocks = table.blocks(s)
+        assert len(blocks) == 2
+        for p, block in enumerate(blocks):
+            assert block.untyped_storage().data_ptr() == \
+                binned.untyped_storage().data_ptr()
+            assert torch.equal(block,
+                               binned[s * m:(s + 1) * m, 2 * p:2 * p + 2])
 
 
 def small_job(n=301, d=8, seed=5):
@@ -193,11 +211,11 @@ def test_fold_ids_in_range_on_compacted_depth4(subtraction):
     seen = []
     fold = aggregator._local_histograms
 
-    def checking(base_fn, blocks, g, h, weight, assign, num_nodes, num_bins,
+    def checking(base_fn, table, g, h, weight, assign, num_nodes, num_bins,
                  kw, child=False):
         seen.append((int(assign.min()), int(assign.max()),
                      (2 if child else 1) * num_nodes, child))
-        return fold(base_fn, blocks, g, h, weight, assign, num_nodes,
+        return fold(base_fn, table, g, h, weight, assign, num_nodes,
                     num_bins, kw, child)
 
     def train():
@@ -221,27 +239,28 @@ def test_fold_ids_in_range_on_compacted_depth4(subtraction):
     assert np.array_equal(hist.final_margin, want_h.final_margin)
 
 
-@pytest.mark.parametrize("parties,shards", [(4, 3), (10, 16)])
-def test_shared_root_keeps_per_block_calls(parties, shards):
+@pytest.mark.parametrize("parties,shards", [(4, 1), (4, 3), (10, 16)])
+def test_shared_root_one_call_per_shard(parties, shards):
     """Level 0 with ``root_delta_rows`` (shared − delta, which ignores
-    ``assign``) makes one call per (party, shard) block, records no fold,
-    and equals the oracle."""
-    blocks, g, h, w = inputs(parties, shards, 1)
+    ``assign``) makes one full-width call per shard, not one per (party,
+    shard) block, records no fold, and equals the per-block oracle."""
+    table, g, h, w = inputs(parties, shards, 1)
     w = (w > 0.5).to(torch.float32)          # the shared root takes 0/1 masks
     assign = torch.zeros(w.shape, dtype=torch.int32)
     calls = []
 
     def counting(*args, **kw):
-        calls.append(args[0].shape)
+        calls.append(tuple(args[0].shape))
         return DIRECT(*args, **kw)
 
     meter, want_meter = compress.MessageMeter(), compress.MessageMeter()
     tracer = trace_mod.Tracer()
-    args = (blocks, g, h, w, assign, 1, NUM_BINS)
+    args = (table, g, h, w, assign, 1, NUM_BINS)
     with trace_mod.use(tracer):
         got = aggregator.federated_round_histogram_fn(counting, meter)(
             *args, level=0, root_delta_rows=7)
-    assert len(calls) == parties * shards
+    n_pad, d = table.table.shape
+    assert calls == [(n_pad // shards, d)] * shards
     assert tracer.counters == []
     with oracle_installed():
         want = aggregator.federated_round_histogram_fn(DIRECT, want_meter)(
@@ -299,14 +318,14 @@ def test_grid_fold_on_card_equals_block_launches(device):
     g = torch.randn(n, generator=gen)
     h = torch.rand(n, generator=gen)
     w = (torch.rand((trees, n), generator=gen) < 0.1).to(torch.float32)
-    blocks = make_blocks(binned.to(device), parties, shards)
+    table = make_table(binned.to(device), parties, shards)
     g, h, w = g.to(device), h.to(device), w.to(device)
     for level, (child, nodes) in enumerate([(False, 1), (True, 1),
                                             (True, 2)]):
         high = 2 * nodes if child else nodes
         assign = torch.randint(0, high, (trees, n), generator=gen,
                                dtype=torch.int32).to(device)
-        args = (blocks, g, h, w, assign, nodes, 32)
+        args = (table, g, h, w, assign, nodes, 32)
         fn = aggregator.federated_round_histogram_fn(
             CHILD if child else DIRECT, child=child)
         ops.reset_launches()
