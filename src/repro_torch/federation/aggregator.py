@@ -4,8 +4,8 @@
 The parties are column ranges of one table in one process
 (``mesh_roles.FederatedTable``), so each provider works over their views
 where the JAX package's runs once per party inside ``shard_map`` (the
-histograms in one launch over the whole table, the routing block by
-block), and each collective is a tensor operation over the party axis
+histograms in one launch over the whole table, the routing in one pass
+over it), and each collective is a tensor operation over the party axis
 behind one seam that meters its payload:
 
 * ``all_gather(tiled)`` over the party axis is ``plain_gather``, a
@@ -202,13 +202,13 @@ def centralized_round_choose_fn(cfg: TreeConfig, num_parties: int,
 
 def pack_bits(x: torch.Tensor) -> torch.Tensor:
     """Pack a (..., n) 0/1 tensor into (..., ceil(n/8)) uint8 maps, little-
-    endian within each byte: the id_partition wire format, 1 bit a row."""
+    endian within each byte: the id_partition wire format, 1 bit a row.
+    The bit positions are made on ``x``'s device: no host copy a call."""
     n = x.shape[-1]
     n_bytes = -(-n // 8)
     bits = torch.nn.functional.pad(x.to(torch.uint8), (0, n_bytes * 8 - n))
-    weights = torch.tensor([1 << b for b in range(8)], dtype=torch.uint8,
-                           device=x.device)
-    return torch.sum(bits.reshape(*x.shape[:-1], n_bytes, 8) * weights,
+    shifts = torch.arange(8, dtype=torch.uint8, device=x.device)
+    return torch.sum(bits.reshape(*x.shape[:-1], n_bytes, 8) << shifts,
                      dim=-1, dtype=torch.uint8)
 
 
@@ -221,41 +221,41 @@ def unpack_bits(packed: torch.Tensor, n: int) -> torch.Tensor:
 
 def federated_round_route_fn(meter=None):
     """Round ownership-masked routing: the whole round's (T, n) go-right
-    decisions in ONE exchange per level (Alg. 2 step 3).
+    decisions in ONE exchange per level (Alg. 2 step 3), in a fixed number
+    of tensor ops for every (party, shard) block of the table.
 
-    Each party decides the rows whose node splits on one of its own
-    columns (``PartyLayout.local``; an unsplit node, -1, has no owner),
-    reading its block of the table, bit-packs them into a (T, ceil(n/8))
-    uint8 map, one a data shard over its own rows (``meter`` records party
-    0's maps, every shard in one record), and each shard's maps are summed
-    over the parties in uint8: every bit has at most one non-zero
-    contributor, so the sum is the OR."""
+    Each row's node feature is read from the full-width table: a row's
+    split column has one owner, so the one compare over the table is every
+    party's decision on its own columns (an unsplit node, -1, goes left).
+    Each party's bits are the rows it decides (``PartyLayout.owner``),
+    bit-packed over each data shard's own rows, all parties and shards in
+    one ``pack_bits``: (P, S, T, ceil(m/8)) uint8 maps (``meter`` records
+    party 0's, every shard in one record).  The maps are summed over the
+    parties in uint8: every bit has at most one non-zero contributor, so
+    the sum is the OR."""
 
     def fn(table, assign, decision):
+        parties, n_shards = table.parties, table.data.num_shards
+        trace_mod.global_tracer().counter(
+            "federation.route_blocks",
+            {"blocks": parties.num_parties * n_shards})
         node = assign.long()
-        f_global = torch.gather(decision.feature, 1, node)     # (T, n)
+        f_global = torch.gather(decision.feature, 1, node).long()   # (T, n)
         thr = torch.gather(decision.threshold, 1, node)
-        shard_bits = []
-        for s, rows in enumerate(table.rows):
-            fg, tr = f_global[:, rows], thr[:, rows]
-            bits = []
-            for p, block in enumerate(table.blocks(s)):
-                owned, col = table.parties.local(fg, p)
-                fv = torch.gather(block, 1, col.T).T            # (T, m)
-                bits.append(owned & (fv > tr))
-            shard_bits.append(bits)
+        fv = torch.gather(table.table, 1, f_global.clamp(0).T).T    # (T, n)
+        go = (f_global >= 0) & (fv > thr)
+        party = torch.arange(parties.num_parties, device=assign.device)
+        bits = (parties.owner(f_global) == party[:, None, None]) & go
+        t, n = assign.shape
+        m = n // n_shards
         with trace_mod.global_tracer().span(EXCHANGE, cat="federation"):
-            shard_maps = [[pack_bits(b) for b in bits]
-                          for bits in shard_bits]
+            maps = pack_bits(bits.view(-1, t, n_shards, m).permute(0, 2, 1, 3))
             if meter is not None:
-                meter.record("id_partition",
-                             torch.stack([maps[0] for maps in shard_maps]))
-            go_right = [
-                unpack_bits(torch.sum(torch.stack(maps), dim=0,
-                                      dtype=torch.uint8),
-                            rows.stop - rows.start)
-                for rows, maps in zip(table.rows, shard_maps)]
-        return assign * 2 + (go_right[0] if len(go_right) == 1
-                             else torch.cat(go_right, dim=1))
+                meter.record("id_partition", maps[0])
+            go_right = unpack_bits(torch.sum(maps, dim=0, dtype=torch.uint8),
+                                   m)                               # (S, T, m)
+        out = assign * 2
+        out.view(t, n_shards, m).add_(go_right.transpose(0, 1))
+        return out
 
     return fn

@@ -22,7 +22,9 @@ both layouts.  A (shard, party) block is a view of it, never a copy, and one
 histogram launch over the table serves every block: each party's histogram
 is a column range of the full-width one, and each shard's partial a node
 range once ``row_shard`` is folded into the node ids
-(``aggregator._local_histograms``).
+(``aggregator._local_histograms``); one routing pass over the table
+makes every block's map (``aggregator.federated_round_route_fn``, with
+``PartyLayout.owner``).
 """
 
 from __future__ import annotations
@@ -49,6 +51,9 @@ class PartyLayout:
     num_features: int
     partition: tabular.VerticalPartition = dataclasses.field(
         init=False, repr=False, compare=False)
+    #: ``owner``'s lookup, one a device
+    _owners: dict = dataclasses.field(
+        init=False, repr=False, compare=False, default_factory=dict)
 
     def __post_init__(self):
         if self.num_parties < 1:
@@ -73,15 +78,17 @@ class PartyLayout:
         views."""
         return list(torch.split(x, self.party_dims, dim=dim))
 
-    def local(self, feature: torch.Tensor, party: int) -> tuple:
-        """``party``'s reading of the global column ids ``feature`` (-1: no
-        column): whether it owns each, and each one's index among its own
-        columns (clamped into them where it does not own it)."""
-        cols = self.columns(party)
-        width = cols.stop - cols.start
-        f_local = feature - cols.start
-        owned = (f_local >= 0) & (f_local < width)
-        return owned, f_local.clamp(0, width - 1).long()
+    def owner(self, feature: torch.Tensor) -> torch.Tensor:
+        """The party that owns each global column id of ``feature`` (int64;
+        -1 for -1, no column): one lookup into a (d + 1,) table made once a
+        device, entry 0 for -1."""
+        lut = self._owners.get(feature.device)
+        if lut is None:
+            lut = torch.tensor(
+                [-1] + [p for p, w in enumerate(self.party_dims)
+                        for _ in range(w)], device=feature.device)
+            self._owners[feature.device] = lut
+        return lut[feature + 1]
 
 
 @functools.lru_cache(maxsize=32)

@@ -323,8 +323,7 @@ def check_gradientless(num_parties: int, loss: str = "logistic",
     offset = 0
     for p, t_p in enumerate(info["tree_counts"]):
         feats = packed.feature[offset:offset + t_p]
-        owned, _ = layout.local(feats[feats >= 0], p)
-        assert bool(owned.all()), (
+        assert bool((layout.owner(feats[feats >= 0]) == p).all()), (
             f"party {p} tree references foreign columns")
         offset += t_p
     predicted = gradientless.wire_cost(n, info["tree_counts"],

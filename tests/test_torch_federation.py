@@ -164,10 +164,12 @@ def test_lossless_backends_equal_local_and_jax(case):
             np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
 
 
-@pytest.mark.parametrize("shape", [(1, 1), (3, 37), (2, 5, 64), (4, 8)])
+@pytest.mark.parametrize("shape", [(1, 1), (3, 37), (2, 5, 64), (4, 8),
+                                   (3, 2, 5, 37), (2, 3, 4, 16)])
 def test_pack_bits_equal_jax(shape):
     """Bit-packed routing maps (little-endian within a byte), n a multiple
-    of 8 or not: the JAX bytes, and the round trip."""
+    of 8 or not: the JAX bytes, and the round trip; 4-d as the router packs
+    every (party, shard) block's maps in one call, (P, S, T, m)."""
     rng = np.random.default_rng(sum(shape))
     bits = (rng.random(shape) < 0.5).astype(np.int32)
     got = t_aggregator.pack_bits(torch.from_numpy(bits))
@@ -341,12 +343,8 @@ def test_party_layout_and_blocks():
     assert [layout.party_index(f) for f in range(8)] == [0, 0, 1, 1, 2, 2,
                                                          3, 3]
     feature = torch.tensor([-1, 0, 1, 2, 3, 7])
-    for p in range(4):
-        owned, col = layout.local(feature, p)
-        assert owned.tolist() == [f >= 0 and layout.party_index(f) == p
-                                  for f in feature.tolist()]
-        assert col[owned].tolist() == [f - 2 * p
-                                       for f in feature[owned].tolist()]
+    assert layout.owner(feature).tolist() == [
+        -1 if f < 0 else layout.party_index(f) for f in feature.tolist()]
     binned = torch.arange(24, dtype=torch.int32).reshape(3, 8)
     table = mesh_roles.FederatedTable.of(binned, layout)
     assert table.table is binned
